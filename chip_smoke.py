@@ -9,26 +9,44 @@ Phases, each printing its lines and raising on any failure:
    versions, and the time to build the kernels from ``kernels/csrc``
    (one nvcc per source, all started together);
 2. kernels — every hand-written kernel against its plain PyTorch
-   version on the card, in bf16 at the serving path's shapes, at G > 1
-   shapes, with a dead slot, NaN-poisoned masked pool rows and a
-   cross-block sampler tie, each against a stated tolerance;
+   version on the card, each against a stated tolerance: flash, fused
+   paged decode and the sampler at the serving path's shapes (G > 1, a
+   dead slot, NaN-poisoned masked rows, a cross-block tie); ring-cache
+   decode at C=4096 (partly filled, wrapped, windowed, NaN in invalid
+   slots, ``pos`` on the device); matmul, Sobel and vecadd at ragged and
+   card shapes;
 3. serve, monolithic — full-width ``qwen1.5-0.5b`` (random weights from
    a fixed seed) through ``ServeEngine``: 8 requests, batch 4, prompts of
    32–130 tokens, 32 new tokens each, capacity 256, 16-token pages;
 4. serve, chunked — the same requests with ``chunk_tokens=32``;
    in 3 and 4 every kernel of the path must have launched, every request
    must finish, ``full_prefills == 0`` and pages leased == freed;
-5. reference — the card against the plain PyTorch path on the CPU:
-   full-width fp32 prefill logits, and reduced-config engine token ids
-   in both modes;
-6. times — per mode TTFT, throughput and the median engine step; per
+5. serve, virtualized — the same requests through a VMM tenant whose
+   pool is sized from the card, ``hybrid`` monolithic and ``slo``
+   chunked: token ids equal phases 3–4 (or the printed reason),
+   ``full_prefills == 0``, leased == freed, no scheduler or CRC failure,
+   an op-log record per step;
+6. VMM programs — a tenant reprograms the full-width prefill program
+   (B=4, S=4096) and the decode program of the same capacity, runs the
+   prefill and 32 greedy decode steps through the guest API at pos
+   4096…4127 (``decode_attention`` 24 times a step), takes a warm hit,
+   and a cross-slice reprogram is refused;
+7. reference — the card against the plain PyTorch path on the CPU:
+   full-width fp32 prefill logits and reduced-config engine token ids in
+   both modes; the step builders' full-width fp32 decode logits and
+   reduced-config decode ids over a wrapped ring;
+8. apps — the paper's three apps (``launch/apps.py``) native and through
+   three bound tenants, at the reference size and at the card's;
+9. times — per mode TTFT, throughput and the median engine step; per
    kernel its device time (torch.profiler/CUPTI; the per-call CUDA-event
    time is printed beside it), its plain version's, one PyTorch call
    computing the same function (``library_ms``, a yardstick the port
    never calls) and the bound.
 
+On every path, the launch counters are set to 0 just before it runs and
+read just after; each kernel of the path must have launched.
 ``--profile`` adds a torch.profiler pass over steady decode steps of
-both modes (device busy share, top device-time entries).
+both serving modes (device busy share, top device-time entries).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -50,6 +68,10 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (data sheet)
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 TOL = {"bfloat16": 3e-2, "float32": 2e-5}
+# ring decode in bf16: its full-ring outputs are O(0.03), so a fixed 3e-2
+# would pass a wrong kernel; each element must lie within two bf16 ulps
+# of the plain output instead (|err| <= 2^-6 |want| + 1e-5)
+RING_BF16_RTOL, RING_BF16_ATOL = 2.0 ** -6, 1e-5
 
 KERNELS = {
     "flash_attention": {
@@ -63,9 +85,29 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/sample_tokens.cu",
         "replaces":
             "src/repro/kernels/decode_attention/decode_attention.py:368"},
+    "decode_attention": {
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces":
+            "src/repro/kernels/decode_attention/decode_attention.py:97"},
+    "matmul": {
+        "source": "src/repro_torch/kernels/csrc/matmul.cu",
+        "replaces": "src/repro/kernels/matmul/matmul.py:41"},
+    "vecadd": {
+        "source": "src/repro_torch/kernels/csrc/vecadd.cu",
+        "replaces": "src/repro/kernels/vecadd/vecadd.py:23"},
+    "sobel": {
+        "source": "src/repro_torch/kernels/csrc/sobel.cu",
+        "replaces": "src/repro/kernels/sobel/sobel.py:43"},
 }
 PATH_KERNELS = {"monolithic": ("flash_attention", "fused_paged_decode"),
-                "chunked": ("fused_paged_decode", "sample_tokens")}
+                "chunked": ("fused_paged_decode", "sample_tokens"),
+                "virtualized-monolithic": ("flash_attention",
+                                           "fused_paged_decode"),
+                "virtualized-chunked": ("fused_paged_decode",
+                                        "sample_tokens"),
+                "vmm-programs": ("flash_attention", "decode_attention"),
+                "apps": ("matmul", "sobel", "vecadd"),
+                "virtualized-apps": ("matmul", "sobel", "vecadd")}
 
 
 def log(*a):
@@ -272,6 +314,119 @@ def check_kernels(device, errs):
     if got != [100, 2050]:
         raise AssertionError("sample_tokens tie rule broken")
     errs["sample_tokens"] = 0.0
+    check_ring_decode(device, errs)
+    check_app_kernels(device, errs)
+
+
+def ring_inputs(B, C, Hq, Hkv, dtype, device, seed, hd=64):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g,  # noqa: E731
+                                device=device).to(dtype)
+    return rn(B, 1, Hq, hd), rn(B, C, Hkv, hd), rn(B, C, Hkv, hd)
+
+
+def check_ring_decode(device, errs):
+    """Ring-cache decode at C=4096: a partly filled ring, a wrapped ring,
+    a window over a wrapped ring, NaN in every invalid slot, and ``pos``
+    given as a device int32 (read by the kernel, no host sync)."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import decode_attention_op
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, ring_valid)
+    B, C = 4, 4096
+    for Hq, Hkv in ((16, 16), (16, 8), (8, 1)):
+        for dt in (torch.bfloat16, torch.float32):
+            for pos, window, nan, on_dev in ((100, 0, False, False),
+                                             (4200, 0, False, True),
+                                             (4200, 64, False, False),
+                                             (100, 0, True, True),
+                                             (4200, 64, True, False)):
+                q, k, v = ring_inputs(B, C, Hq, Hkv, dt, device,
+                                      seed=Hq + Hkv + pos + window)
+                if nan:
+                    bad = ~ring_valid(C, pos, window, device)
+                    k[:, bad] = float("nan")
+                    v[:, bad] = float("nan")
+                p = (torch.tensor(pos, dtype=torch.int32, device=device)
+                     if on_dev else pos)
+                got = decode_attention_op(q, k, v, p, window=window)
+                if nan:
+                    k = torch.nan_to_num(k, nan=0.0)
+                    v = torch.nan_to_num(v, nan=0.0)
+                want = decode_attention_ref(q, k, v, pos, window=window)
+                dn = str(dt).replace("torch.", "")
+                what = (f"B={B} C={C} Hq={Hq} Hkv={Hkv} hd=64 pos={pos}"
+                        f"{' (device)' if on_dev else ''} window={window} "
+                        f"nan_invalid={nan} {dn}")
+                if dt == torch.bfloat16:
+                    err = _expect_close("decode_attention", what, got, want,
+                                        RING_BF16_ATOL, RING_BF16_RTOL)
+                else:
+                    if not bool(torch.isfinite(got).all()):
+                        raise AssertionError("decode_attention: non-finite "
+                                             "output")
+                    err = _expect("decode_attention", what,
+                                  _max_err(got, want), TOL[dn])
+                errs["decode_attention"] = max(
+                    errs.get("decode_attention", 0), err)
+
+
+def _expect_close(name, what, got, want, atol, rtol):
+    """The reference tests' ``assert_allclose(atol, rtol)`` rule, each
+    element, and a finite output; returns the max absolute error."""
+    import torch
+    from repro_torch.launch.apps import max_excess
+    err, excess = max_excess(got, want, atol, rtol)
+    ok = excess <= 0 and bool(torch.isfinite(got.float()).all())
+    log(f"[kernel] {name} {what}: max_abs_err={err:.3g} atol={atol:.3g} "
+        f"rtol={rtol:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {what}: outside atol {atol} rtol "
+                             f"{rtol}")
+    return err
+
+
+def check_app_kernels(device, errs):
+    """The paper's three apps: matmul at ragged and card shapes (fp32 at
+    1e-5·√k abs / 1e-5 rel, bf16 at 2e-1·√k / 2e-1, the reference test's
+    rule), Sobel at 1e-4, vecadd exactly (also from a misaligned start,
+    which takes the scalar path)."""
+    import torch
+    from repro_torch.kernels.matmul.ops import matmul_op
+    from repro_torch.kernels.matmul.ref import matmul_ref
+    from repro_torch.kernels.sobel.ops import sobel_op
+    from repro_torch.kernels.sobel.ref import sobel_ref
+    from repro_torch.kernels.vecadd.ops import vecadd_op
+    from repro_torch.kernels.vecadd.ref import vecadd_ref
+    g = torch.Generator(device=device).manual_seed(21)
+    rn = lambda *s: torch.randn(s, generator=g, device=device)  # noqa: E731
+    for m, k, n in ((33, 17, 9), (100, 300, 50), (256, 256, 256),
+                    (4096, 4096, 4096)):
+        for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-1)):
+            a, b = rn(m, k).to(dt), rn(k, n).to(dt)
+            err = _expect_close("matmul", f"({m},{k})@({k},{n}) "
+                                f"{str(dt)[6:]}", matmul_op(a, b),
+                                matmul_ref(a, b), tol * k ** 0.5, tol)
+            errs["matmul"] = max(errs.get("matmul", 0), err)
+    for h, w in ((100, 180), (256, 256), (4096, 4096)):
+        x = rn(h, w)
+        err = _expect_close("sobel", f"({h},{w}) float32", sobel_op(x),
+                            sobel_ref(x), 1e-4, 1e-4)
+        errs["sobel"] = max(errs.get("sobel", 0), err)
+    for n in (128, 50000, 1 << 26):
+        for dt in (torch.float32, torch.bfloat16):
+            x, y = rn(n + 1).to(dt), rn(n + 1).to(dt)
+            for off in ((0, 1) if n == 50000 else (0,)):
+                xs, ys = x[off:off + n], y[off:off + n]
+                got, want = vecadd_op(xs, ys), vecadd_ref(xs, ys)
+                mism = int((got != want).sum())
+                log(f"[kernel] vecadd n={n} offset={off} {str(dt)[6:]}: "
+                    f"{mism} mismatches (exact match required) "
+                    f"{'ok' if mism == 0 else 'FAIL'}")
+                if mism:
+                    raise AssertionError("vecadd differs from x + y")
+    errs["vecadd"] = 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -287,10 +442,11 @@ def make_requests(vocab, n=8, seed=0):
 
 
 def serve(cfg, model, params, requests, chunk_tokens, batch=4,
-          capacity=256, page_size=16, obs=None):
+          capacity=256, page_size=16, obs=None, engine_kw=None):
     from repro_torch.serving import ServeEngine
     eng = ServeEngine(cfg, model, batch, capacity, page_size=page_size,
-                      chunk_tokens=chunk_tokens, obs=obs, obs_tenant="smoke")
+                      chunk_tokens=chunk_tokens, obs=obs, obs_tenant="smoke",
+                      **(engine_kw or {}))
     rids = [eng.submit(p, max_new_tokens=n, temperature=t)
             for p, n, t in requests]
     steps = []       # host clock; every step ends in a device→host copy
@@ -324,10 +480,7 @@ def serve_phase(mode, cfg, model, params, requests, launches):
         raise AssertionError(f"{mode}: not every request finished")
     if s.full_prefills != 0 or s.pages_leased != s.pages_freed:
         raise AssertionError(f"{mode}: paging invariants broken")
-    for k in PATH_KERNELS[mode]:
-        if counts.get(k, 0) <= 0:
-            raise AssertionError(f"{mode}: kernel {k} never launched")
-        launches[k] = launches.get(k, 0) + counts[k]
+    count_path(mode, counts, launches)
     ten = obs.tracer.snapshot()["tenants"]["smoke"]
     return {"ttft_p50_ms": 1e3 * ten["ttft_s"]["p50"],
             "ttft_p95_ms": 1e3 * ten["ttft_s"]["p95"],
@@ -335,6 +488,297 @@ def serve_phase(mode, cfg, model, params, requests, launches):
             "tok_s": s.generated_tokens / wall,
             "step_p50_ms": 1e3 * statistics.median(steps),
             "outs": outs}
+
+
+def cpu_tree(tree):
+    """A copy on the CPU of a tree (dicts, lists) of tensors."""
+    if isinstance(tree, dict):
+        return {k: cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cpu_tree(v) for v in tree]
+    return tree.cpu()
+
+
+def sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def count_path(path, counts, launches):
+    """Every kernel of ``path`` must have launched in its run; add its
+    counts to the totals of the kernels JSON line."""
+    for k in PATH_KERNELS[path]:
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"{path}: kernel {k} never launched")
+        launches[k] = launches.get(k, 0) + counts[k]
+
+
+def virtualized_phase(mode, policy, cfg, model, params, requests, native,
+                      launches):
+    """The native phase's requests through a VMM tenant (one 1×1 slice of
+    the card, pool sized from the card): every step via
+    ``tenant.device.run``, KV pages from the tenant's MMU pool, the
+    pool-pressure admission gate. Token ids must equal the native run's
+    unless the engine says why (deferred admissions)."""
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.launch.serve import virtual_server, virtualized_engine_kw
+    device = model.device
+    vmm, tenant = virtual_server(device, policy)
+    try:
+        chunk = 32 if mode == "chunked" else 0
+        common.reset_launches()
+        eng, outs, wall, steps = serve(
+            cfg, model, params, requests, chunk,
+            engine_kw=virtualized_engine_kw(tenant))
+        counts = dict(common.LAUNCHES)
+        st = vmm.stats()
+    finally:
+        vmm.shutdown()
+    s = eng.stats
+    sched = st["scheduler"]["tenants"]["server"]
+    path = f"virtualized-{mode}"
+    log(f"[{path}] policy={policy}: {s.completed} requests, "
+        f"{s.generated_tokens} tokens in {wall:.3f}s; {s.steps} steps, "
+        f"full_prefills={s.full_prefills}, pages leased={s.pages_leased} "
+        f"freed={s.pages_freed}, deferred={s.deferred}; pool "
+        f"{st['memory']['server']['segments_total']} segments; scheduler "
+        f"submitted={sched['submitted']} failed={sched['failed']}; "
+        f"crc_failures={st['crc_failures']}, oplog_records="
+        f"{st['oplog_records']}; launches={counts}")
+    if s.full_prefills != 0 or s.pages_leased != s.pages_freed:
+        raise AssertionError(f"{path}: paging invariants broken")
+    if sched["failed"] != 0 or st["crc_failures"] != 0:
+        raise AssertionError(f"{path}: scheduler failures or CRC failures")
+    if st["oplog_records"] < s.steps:
+        raise AssertionError(f"{path}: op log missed steps")
+    if s.completed != len(requests):
+        raise AssertionError(f"{path}: not every request finished")
+    same = outs == native
+    log(f"[{path}] token ids vs native {mode}: "
+        f"{'identical' if same else 'DIFFER'}"
+        + ("" if same else f" (deferred={s.deferred})"))
+    if not same and s.deferred == 0:
+        raise AssertionError(f"{path}: tokens differ from native with no "
+                             "deferred admission to explain it")
+    count_path(path, counts, launches)
+    del eng
+    torch.cuda.empty_cache()
+    return {"tok_s": s.generated_tokens / wall,
+            "step_p50_ms": 1e3 * statistics.median(steps)}
+
+
+def program_params(abstract, cfg, device, seed):
+    """Random weights (``Model.init`` from ``seed``) in the shapes and
+    dtypes of a program's abstract parameters."""
+    import torch
+    from repro_torch.models import Model
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def cast(p, a):
+        if isinstance(a, dict):
+            return {k: cast(p[k], a[k]) for k in a}
+        if isinstance(a, list):
+            return [cast(x, y) for x, y in zip(p, a)]
+        if p.shape != a.shape:
+            raise AssertionError(f"weights {tuple(p.shape)} vs program "
+                                 f"{tuple(a.shape)}")
+        return p.to(a.dtype)
+    return cast(Model(cfg, device).init(gen), abstract)
+
+
+def vmm_programs_phase(device, launches, S=4096, B=4, n_decode=32):
+    """The VMM's own programs at full width through the guest API: a
+    prefill program with ring caches of capacity S, then a decode program
+    of the same capacity stepping at pos S … S+n_decode-1 (a full ring
+    that wraps). Also: a warm reprogram, and the cross-slice reprogram
+    attack refused on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import VMM, LegalityError, ProgramRequest
+    from repro_torch.kernels import common
+    from repro_torch.launch.serve import virtual_server
+    cfg = get_config("qwen1.5-0.5b")
+    vmm, tenant = virtual_server(device, "hybrid")
+    try:
+        dev = tenant.device
+        t0 = time.perf_counter()
+        prog = dev.reprogram(ProgramRequest("qwen1.5-0.5b", "prefill", S, B,
+                                            reduced=False))
+        t_pf = time.perf_counter() - t0
+        params = program_params(prog.bitfile.abstract_args[0], cfg, device,
+                                5)
+        gen = torch.Generator(device=device).manual_seed(6)
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                               device=device, dtype=torch.int32)
+        common.reset_launches()
+        logits, caches = dev.run(params, {"tokens": tokens})
+        sync(device)
+        counts = dict(common.LAUNCHES)
+        t0 = time.perf_counter()
+        req_d = ProgramRequest("qwen1.5-0.5b", "decode", S, B, reduced=False)
+        dev.reprogram(req_d)
+        t_dc = time.perf_counter() - t0
+        want = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)
+        if tuple(caches["k"].shape) != want:
+            raise AssertionError(f"prefill caches {tuple(caches['k'].shape)}")
+        tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
+        common.reset_launches()
+        t0 = time.perf_counter()
+        for i in range(n_decode):
+            pos = torch.tensor(S + i, dtype=torch.int32, device=device)
+            logits, caches = dev.run(params, caches, tok, pos)
+            tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
+        sync(device)
+        t_steps = time.perf_counter() - t0
+        dcounts = dict(common.LAUNCHES)
+        for k, v in dcounts.items():
+            counts[k] = counts.get(k, 0) + v
+        if not bool(torch.isfinite(logits.float()).all()) or \
+                logits.shape != (B, cfg.padded_vocab):
+            raise AssertionError("decode program logits malformed")
+        per_step = dcounts.get("decode_attention", 0) / n_decode
+        log(f"[vmm-programs] prefill program B={B} S={S} (reprogram "
+            f"{t_pf:.2f}s), decode program C={S} (reprogram {t_dc:.2f}s): "
+            f"{n_decode} greedy steps at pos {S}..{S + n_decode - 1} in "
+            f"{t_steps:.3f}s ({1e3 * t_steps / n_decode:.1f} ms/step); "
+            f"decode_attention launches per step {per_step:g} (want 24); "
+            f"launches={counts}")
+        if per_step != 24:
+            raise AssertionError("decode_attention must launch once per "
+                                 "layer per step")
+        dev.reprogram(req_d)
+        st = vmm.stats()
+        log(f"[vmm-programs] warm reprogram: compile_hits="
+            f"{st['compile_hits']} misses={st['compile_misses']} "
+            f"reconfigs={st['reconfigs']} crc_checks={st['crc_checks']}")
+        if st["compile_hits"] != 1:
+            raise AssertionError("second reprogram was not a warm hit")
+        count_path("vmm-programs", counts, launches)
+    finally:
+        vmm.shutdown()
+    del params, caches, logits
+    torch.cuda.empty_cache()
+
+    # the paper's attack: VM0's bitfile flashed into VM1's slice
+    grid = np.empty((1, 2), dtype=object)
+    grid[0, :] = [device, device]
+    vmm = VMM(grid, policy="hybrid",
+              hbm_per_chip=None if device.type == "cuda" else 1 << 30)
+    try:
+        a = vmm.create_vm("vm0", (1, 1))
+        b = vmm.create_vm("vm1", (1, 1))
+        bf = vmm.compiler.compile(ProgramRequest("qwen1.5-0.5b", "decode",
+                                                 64, 1), a.vslice)
+        try:
+            b.device.reprogram(bf)
+        except LegalityError as exc:
+            log(f"[vmm-programs] cross-slice reprogram refused: {exc}; "
+                f"violations={vmm.auditor.summary()}")
+        else:
+            raise AssertionError("cross-slice reprogram was accepted")
+    finally:
+        vmm.shutdown()
+
+
+def program_reference_phase(device):
+    """The step builders on the card against the CPU plain path: the
+    full-width fp32-compute first decode step's logits (B=1, 32-token
+    prompt), and reduced-config greedy decode token ids over a ring that
+    wraps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.parallel.steps import build_decode, build_prefill
+    cpu = torch.device("cpu")
+
+    def both(cfg, C, B, params_seed):
+        out = {}
+        for d in (device, cpu):
+            pf, pa = build_prefill(cfg, d, ShapeCell("c", C, B, "prefill"))
+            dc, _ = build_decode(cfg, d, ShapeCell("c", C, B, "decode"))
+            out[d.type] = (pf, dc)
+        params = program_params(pa[0], cfg, device, params_seed)
+        return out, params, cpu_tree(params)
+
+    # full width, fp32 compute: first decode step's logits
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                              compute_dtype="float32")
+    progs, p_dev, p_cpu = both(cfg, 64, 1, 9)
+    toks = make_requests(cfg.vocab, 1, seed=4)[0][0][:32]
+    tok = torch.from_numpy(toks[None]).to(torch.int32)
+    res = {}
+    for d, p in ((device, p_dev), (cpu, p_cpu)):
+        pf, dc = progs[d.type]
+        lg, caches = pf(p, {"tokens": tok.to(d)})
+        nxt = torch.tensor([[int(lg[0, :cfg.vocab].argmax())]],
+                           dtype=torch.int32, device=d)
+        res[d.type] = (nxt, dc, caches)
+    nxt = res[device.type][0]              # the card's token feeds both
+    got = res[device.type][1](p_dev, res[device.type][2], nxt, 32)[0]
+    want = res["cpu"][1](p_cpu, res["cpu"][2], nxt.cpu(), 32)[0]
+    got, want = got[:, :cfg.vocab].float().cpu(), want[:, :cfg.vocab]
+    err = _max_err(got, want)
+    log(f"[program-reference] full-width fp32 decode-program logits (B=1, "
+        f"32-token prompt, C=64) card vs CPU: max_abs_err={err:.3g} (max "
+        f"|logit| {float(want.abs().max()):.3g}, tol 1e-3) "
+        f"{'ok' if err <= 1e-3 else 'FAIL'}")
+    if err > 1e-3 or not bool(torch.isfinite(got).all()):
+        raise AssertionError("card and CPU decode-program logits disagree")
+    del p_dev, res, progs
+    torch.cuda.empty_cache()
+
+    # reduced config, fp32: greedy ids over a ring of 16 slots that wraps
+    rcfg = dataclasses.replace(get_config("qwen1.5-0.5b", reduced=True),
+                               compute_dtype="float32")
+    progs, p_dev, p_cpu = both(rcfg, 16, 2, 13)
+    prompt = torch.from_numpy(np.stack(
+        [r[0][:12] for r in make_requests(rcfg.vocab, 2, seed=6)])).to(
+        torch.int32)
+    ids = {}
+    for d, p in ((device, p_dev), (cpu, p_cpu)):
+        pf, dc = progs[d.type]
+        lg, caches = pf(p, {"tokens": prompt.to(d)})
+        tok = lg[:, :rcfg.vocab].argmax(-1).to(torch.int32)[:, None]
+        seq = []
+        for pos in range(12, 12 + 24):
+            lg, caches = dc(p, caches, tok, pos)
+            tok = lg[:, :rcfg.vocab].argmax(-1).to(torch.int32)[:, None]
+            seq.append(tok[:, 0].tolist())
+        ids[d.type] = seq
+    same = ids[device.type] == ids["cpu"]
+    log(f"[program-reference] reduced decode program, C=16, 24 greedy steps "
+        f"at pos 12..35 (wraps), token ids card vs CPU: "
+        f"{'identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"decode ids differ: {ids}")
+
+
+def apps_phase(device, launches):
+    """The paper's three apps, native and through three bound tenants, at
+    the reference benchmark's size and at the card's. ``apps.run`` counts
+    each arm's launches apart, so the native calls and the guest calls
+    through the tenants are each held to have launched every kernel."""
+    from repro_torch.kernels import common
+    from repro_torch.launch import apps
+    out = {}
+    arms = {"native": {}, "virtualized": {}}
+    for size in ("fig6a", "card"):
+        common.reset_launches()
+        out[size] = apps.run(device, size, log=log)
+        for arm, counts in out[size]["launches"].items():
+            for k, n in counts.items():
+                arms[arm][k] = arms[arm].get(k, 0) + n
+    log(f"[apps] launches native={arms['native']} "
+        f"virtualized={arms['virtualized']}")
+    count_path("apps", arms["native"], launches)
+    count_path("virtualized-apps", arms["virtualized"], launches)
+    return out
 
 
 def profile_phase(mode, cfg, model, params, requests, n_steps=8):
@@ -381,13 +825,6 @@ def reference_phase(device):
     from repro_torch.configs import get_config
     from repro_torch.models import Model
 
-    def cpu_copy(tree):
-        if isinstance(tree, dict):
-            return {k: cpu_copy(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [cpu_copy(v) for v in tree]
-        return tree.cpu()
-
     # full width, fp32 compute: prefill logits card vs CPU
     cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
                               compute_dtype="float32")
@@ -396,7 +833,7 @@ def reference_phase(device):
     toks = make_requests(cfg.vocab, 1, seed=3)[0][0][:40]
     tok = torch.from_numpy(toks[None]).long()
     got, _ = m_dev.prefill(params, {"tokens": tok.to(device)})
-    want, _ = m_cpu.prefill(cpu_copy(params), {"tokens": tok})
+    want, _ = m_cpu.prefill(cpu_tree(params), {"tokens": tok})
     got = got[:, :cfg.vocab].cpu()
     want = want[:, :cfg.vocab]
     if not bool(torch.isfinite(got).all()) or got.shape != (1, cfg.vocab):
@@ -420,7 +857,7 @@ def reference_phase(device):
     for chunk in (0, 8):
         a = serve(rcfg, r_dev, rp, reqs, chunk, batch=3, capacity=64,
                   page_size=8)[1]
-        b = serve(rcfg, r_cpu, cpu_copy(rp), reqs, chunk, batch=3,
+        b = serve(rcfg, r_cpu, cpu_tree(rp), reqs, chunk, batch=3,
                   capacity=64, page_size=8)[1]
         log(f"[reference] reduced engine chunk={chunk} token ids card vs "
             f"CPU: {'identical' if a == b else 'DIFFER'}")
@@ -499,6 +936,7 @@ def time_kernels(device):
         "library_ms": timed(lambda: torch.argmax(
             logits + noise * temps[:, None], dim=-1)),
         "bound_ms": b, "bound_by": by}
+    out.update(time_new_kernels(device))
     for name, r in out.items():
         log(f"[time] {name} {r['shape']}: device ms (event ms per call) — "
             f"kernel {r['ms'][0]:.4f} ({r['ms'][1]:.4f}), plain "
@@ -507,6 +945,88 @@ def time_kernels(device):
             f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
         for key in ("ms", "plain_ms", "library_ms"):
             r[key] = r[key][0]                     # the JSON line: device
+    return out
+
+
+def time_new_kernels(device):
+    """Times of the ring decode kernel (B=4, C=4096, full ring) and the
+    three app kernels at the ``card`` shapes, with their bounds from
+    these inputs. matmul's JSON row is fp32; bf16 is printed beside it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention_op
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, ring_valid)
+    from repro_torch.kernels.matmul.ops import matmul_op
+    from repro_torch.kernels.matmul.ref import matmul_ref
+    from repro_torch.kernels.sobel.ops import sobel_op
+    from repro_torch.kernels.sobel.ref import sobel_ref
+    from repro_torch.kernels.vecadd.ops import vecadd_op
+    from repro_torch.kernels.vecadd.ref import vecadd_ref
+    out = {}
+    g = torch.Generator(device=device).manual_seed(8)
+    rn = lambda *s: torch.randn(s, generator=g, device=device)  # noqa: E731
+
+    # ring decode: every slot valid (pos >= C), bf16
+    B, C, H, hd, pos = 4, 4096, 16, 64, 5000
+    q, k, v = ring_inputs(B, C, H, H, torch.bfloat16, device, seed=8)
+    n_valid = int(ring_valid(C, pos, 0, device).sum())
+    nbytes = 2 * B * n_valid * H * hd * 2 + 2 * B * H * hd * 2
+    b, by = bound(nbytes, B * n_valid * H * 4 * hd, BF16_FLOPS)
+    mask = ring_valid(C, pos, 0, device)[None, None, None, :]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    out["decode_attention"] = {
+        "shape": f"B={B} C={C} Hq=Hkv={H} hd={hd} pos={pos} (full ring) "
+                 "bf16",
+        "ms": timed(lambda: decode_attention_op(q, k, v, pos)),
+        "plain_ms": timed(lambda: decode_attention_ref(q, k, v, pos)),
+        "library_ms": timed(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)),
+        "bound_ms": b, "bound_by": by}
+
+    # matmul 4096^3: fp32 (the JSON row) and bf16
+    M = K = N = 4096
+    for dt, peak in ((torch.bfloat16, BF16_FLOPS), (torch.float32,
+                                                    FP32_FLOPS)):
+        a, bb = rn(M, K).to(dt), rn(K, N).to(dt)
+        esz = a.element_size()
+        b, by = bound((M * K + K * N + M * N) * esz, 2 * M * N * K, peak)
+        name = "matmul" if dt == torch.float32 else "matmul_bf16"
+        out[name] = {
+            "shape": f"{M}x{K}x{N} {str(dt)[6:]}",
+            "ms": timed(lambda: matmul_op(a, bb)),
+            "plain_ms": timed(lambda: matmul_ref(a, bb)),
+            "library_ms": timed(lambda: torch.matmul(a, bb)),
+            "bound_ms": b, "bound_by": by}
+
+    # sobel 4096^2 fp32
+    H2 = W2 = 4096
+    img = rn(H2, W2)
+    filt = torch.tensor([[[-1., 0., 1.], [-2., 0., 2.], [-1., 0., 1.]],
+                         [[-1., -2., -1.], [0., 0., 0.], [1., 2., 1.]]],
+                        device=device)[:, None]
+
+    def conv_hypot():
+        gxy = F.conv2d(img[None, None], filt, padding=1)[0]
+        return torch.hypot(gxy[0], gxy[1])
+    b, by = bound(2 * H2 * W2 * 4, 17 * H2 * W2, FP32_FLOPS)
+    out["sobel"] = {
+        "shape": f"{H2}x{W2} float32",
+        "ms": timed(lambda: sobel_op(img)),
+        "plain_ms": timed(lambda: sobel_ref(img)),
+        "library_ms": timed(conv_hypot),
+        "bound_ms": b, "bound_by": by}
+
+    # vecadd 2^26 fp32
+    n = 1 << 26
+    x, y = rn(n), rn(n)
+    b, by = bound(3 * n * 4, n, FP32_FLOPS)
+    out["vecadd"] = {
+        "shape": f"n={n} float32",
+        "ms": timed(lambda: vecadd_op(x, y)),
+        "plain_ms": timed(lambda: vecadd_ref(x, y)),
+        "library_ms": timed(lambda: torch.add(x, y)),
+        "bound_ms": b, "bound_by": by}
     return out
 
 
@@ -551,18 +1071,25 @@ def main():
     params = model.compute_params(
         model.init(torch.Generator(device=device).manual_seed(0)))
     requests = make_requests(cfg.vocab)
-    launches, modes = {}, {}
+    launches, modes, native = {}, {}, {}
     for mode in ("monolithic", "chunked"):
         modes[mode] = serve_phase(mode, cfg, model, params, requests,
                                   launches)
-        outs = modes[mode].pop("outs")
+        native[mode] = outs = modes[mode].pop("outs")
         flat = [t for o in outs for t in o]
         if not all(0 <= t < cfg.vocab for t in flat):
             raise AssertionError(f"{mode}: token id out of range")
+    virt = {}
+    for mode, policy in (("monolithic", "hybrid"), ("chunked", "slo")):
+        virt[mode] = virtualized_phase(mode, policy, cfg, model, params,
+                                       requests, native[mode], launches)
     del params, model
     torch.cuda.empty_cache()
 
+    vmm_programs_phase(device, launches)
     reference_phase(device)
+    program_reference_phase(device)
+    apps_phase(device, launches)
 
     if "--profile" in sys.argv[1:]:
         model = Model(cfg, device)
@@ -580,6 +1107,11 @@ def main():
             f"{r['queue_p50_ms']:.2f} ms); {r['tok_s']:.1f} tok/s over the "
             f"run; engine step p50 {r['step_p50_ms']:.3f} ms = "
             f"{4e3 / r['step_p50_ms']:.1f} decode tok/s at 4 slots")
+    for mode, r in virt.items():
+        log(f"[time:virtualized-{mode}] {r['tok_s']:.1f} tok/s over the run; "
+            f"engine step p50 {r['step_p50_ms']:.3f} ms (native "
+            f"{modes[mode]['step_p50_ms']:.3f} ms, ratio "
+            f"{r['step_p50_ms'] / modes[mode]['step_p50_ms']:.3f})")
 
     rows = [{"name": name, "route": "cuda", **KERNELS[name],
              "launches": launches.get(name, 0),

@@ -9,7 +9,14 @@ layer. Layouts are kept as they are (``wq (d,H,hd)``, ``wo (H,hd,d)``,
 
 Both directions speak numpy: ``tree`` is the JAX pytree after
 ``jax.device_get`` (this module imports no JAX). The round trip
-``params_to_numpy(params_from_jax(tree))`` is byte-exact.
+``params_to_numpy(params_from_jax(tree))`` is byte-exact. A bf16 leaf
+(an ``ml_dtypes`` array on the JAX side) crosses as its raw bits; on the
+way back it stays bits (``uint16``), since the port does not depend on
+``ml_dtypes``.
+
+Ring caches cross the same way: the reference's ``init_cache``/
+``prefill`` caches are ``[[{"mixer": {"k", "v"}}]]`` with leaves stacked
+(L, B, C, Hkv, hd); the port's are ``{"k", "v"}`` of that shape.
 """
 from __future__ import annotations
 
@@ -23,13 +30,20 @@ def _to_torch(tree, device, index=None):
     a = np.asarray(tree)
     if index is not None:
         a = a[index]
-    return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
+    a = np.array(a, copy=True, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
 
 
 def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def params_from_jax(tree, device="cpu"):
@@ -47,15 +61,44 @@ def params_from_jax(tree, device="cpu"):
     return out
 
 
-def params_to_numpy(params):
-    """Inverse of :func:`params_from_jax`: port parameters → the JAX
-    pytree layout with numpy leaves (layers re-stacked on axis 0)."""
-    out = {k: _to_numpy(v) for k, v in params.items() if k != "layers"}
-    layers = [_to_numpy(p) for p in params["layers"]]
+def stacked_layout(params):
+    """Port parameters → the JAX pytree layout with CPU tensor leaves
+    (layers re-stacked on axis 0)."""
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        return tree.detach().cpu()
 
     def stack(*leaves):
         if isinstance(leaves[0], dict):
             return {k: stack(*(lf[k] for lf in leaves)) for k in leaves[0]}
-        return np.stack(leaves)
-    out["segments"] = [[stack(*layers)]]
+        return torch.stack(leaves)
+    out = {k: cpu(v) for k, v in params.items() if k != "layers"}
+    out["segments"] = [[stack(*(cpu(p) for p in params["layers"]))]]
     return out
+
+
+def params_to_numpy(params):
+    """Inverse of :func:`params_from_jax`: port parameters → the JAX
+    pytree layout with numpy leaves (layers re-stacked on axis 0)."""
+    def tree_numpy(tree):
+        if isinstance(tree, dict):
+            return {k: tree_numpy(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [tree_numpy(v) for v in tree]
+        return _to_numpy(tree)
+    return tree_numpy(stacked_layout(params))
+
+
+def caches_from_jax(caches, device="cpu"):
+    """Reference ring caches ``[[{"mixer": {"k","v"}}]]`` (numpy leaves,
+    stacked (L,B,C,Hkv,hd)) → the port's ``{"k","v"}``."""
+    if len(caches) != 1 or len(caches[0]) != 1:
+        raise NotImplementedError("bridge: one scan segment of attn layers")
+    return _to_torch(caches[0][0]["mixer"], device)
+
+
+def caches_to_numpy(caches):
+    """Inverse of :func:`caches_from_jax`: the port's ring caches → the
+    reference's ``[[{"mixer": {"k","v"}}]]`` with numpy leaves."""
+    return [[{"mixer": _to_numpy(caches)}]]

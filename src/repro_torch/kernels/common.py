@@ -126,9 +126,11 @@ def library(name: str) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def entry(name: str, fn: str, argtypes: str):
     """C entry ``fn`` of ``csrc/<name>.cu`` with its argument types set
-    (``"p"`` pointer or stream, ``"i"`` int, ``"f"`` float)."""
+    (``"p"`` pointer or stream, ``"i"`` int, ``"l"`` 64-bit int, ``"f"``
+    float)."""
     f = getattr(library(name), fn)
-    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+             "l": ctypes.c_longlong, "f": ctypes.c_float}
     f.argtypes = [kinds[a] for a in argtypes]
     f.restype = ctypes.c_int
     return f

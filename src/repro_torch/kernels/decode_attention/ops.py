@@ -1,19 +1,65 @@
-"""Wrappers of the fused paged decode kernel and the sampler, with the
-call contracts of ``repro.kernels.decode_attention.ops``
-(``fused_decode_step_op``, ``sample_tokens_op``).
+"""Wrappers of the ring-cache decode kernel, the fused paged decode
+kernel and the sampler, with the call contracts of
+``repro.kernels.decode_attention.ops`` (``decode_attention_op`` for a
+contiguous cache, ``fused_decode_step_op``, ``sample_tokens_op``).
 
-A CUDA tensor launches ``csrc/fused_paged_decode.cu`` /
-``csrc/sample_tokens.cu`` on the current stream; a CPU tensor runs the
-plain version in ``ref.py``."""
+A CUDA tensor launches ``csrc/decode_attention.cu`` /
+``csrc/fused_paged_decode.cu`` / ``csrc/sample_tokens.cu`` on the
+current stream; a CPU tensor runs the plain version in ``ref.py``."""
 import torch
 
 from repro_torch.kernels import common
-from repro_torch.kernels.decode_attention.ref import (fused_paged_decode_ref,
+from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
+                                                      fused_paged_decode_ref,
                                                       sample_tokens_ref)
 
+RING = "decode_attention"
 DECODE = "fused_paged_decode"
 SAMPLE = "sample_tokens"
 HEAD_DIMS = (16, 32, 64, 128)
+RING_GROUPS = (1, 2, 4, 8)
+
+
+def decode_attention_op(q, k_cache, v_cache, pos, *, window=0):
+    """q: (B,1,Hq,hd); k/v: (B,C,Hkv,hd) contiguous ring caches (position
+    p at slot p % C); ``pos``: the new token's position, shared by every
+    slot — a Python int, or a 0-d int32 tensor on the caches' device that
+    the kernel reads itself (no host sync) → (B,1,Hq,hd)."""
+    require = common.require
+    B, one, Hq, hd = q.shape
+    require(k_cache.dim() == 4 and k_cache.shape == v_cache.shape
+            and k_cache.shape[0] == B and k_cache.shape[3] == hd
+            and one == 1 and Hq % k_cache.shape[2] == 0,
+            f"q{tuple(q.shape)} does not match caches"
+            f"{tuple(k_cache.shape)}")
+    require(q.dtype == k_cache.dtype == v_cache.dtype, "q/k/v dtypes differ")
+    on_dev = isinstance(pos, torch.Tensor)
+    if on_dev:
+        require(pos.dim() == 0, "pos must be a 0-d tensor or an int")
+    cpu = common.on_cpu(q, k_cache, v_cache, *([pos] if on_dev else []))
+    if cpu:
+        return decode_attention_ref(q, k_cache, v_cache, pos, window=window)
+    _, C, Hkv, _ = k_cache.shape
+    require(hd in HEAD_DIMS, f"kernel takes hd in {HEAD_DIMS}, got {hd}")
+    require(Hq // Hkv in RING_GROUPS,
+            f"kernel takes Hq/Hkv in {RING_GROUPS}, got {Hq // Hkv}")
+    common.check_contiguous(q=q, k_cache=k_cache, v_cache=v_cache)
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+    if on_dev:
+        require(pos.dtype == torch.int32, "pos tensor must be int32")
+        pos_ptr, pos_val = pos.data_ptr(), 0
+    else:
+        require(int(pos) >= 0, f"pos must be >= 0, got {pos}")
+        pos_ptr, pos_val = None, int(pos)
+    out = torch.empty_like(q)
+    fn = common.entry(RING, "decode_attention", "pppppiiiiiiiifp")
+    code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+              out.data_ptr(), pos_ptr, pos_val, common.dtype_code(q), B, C,
+              Hq, Hkv, hd, int(window), hd ** -0.5, common.stream_of(q))
+    common.check(code, "decode_attention")
+    common.LAUNCHES[RING] += 1
+    return out
 
 
 def fused_decode_step_op(q, k_new, v_new, k_pages, v_pages, lengths,

@@ -1,10 +1,45 @@
-"""Plain PyTorch versions of the fused paged decode attention and the
-on-device sampler, in the call layout of their ops. The CPU path of the
+"""Plain PyTorch versions of the ring-cache decode attention, the fused
+paged decode attention and the on-device sampler, in the call layout of
+their ops. The CPU path of the
 wrappers in ``ops.py`` and the yardsticks the CUDA kernels are held
 against on the card."""
 import torch
 
 _NEG = -1e30
+
+
+def ring_valid(C, pos, window=0, device=None):
+    """(C,) bool: the ring slots that hold one of the last
+    ``min(pos + 1, C)`` positions (``slot <= pos`` or the ring is full),
+    and with a window only those of ring age ``(pos % C - slot) mod C <
+    window``. ``pos`` is an int or a 0-d integer tensor."""
+    slot = torch.arange(C, device=device)
+    pos = torch.as_tensor(pos, device=device).long()
+    valid = (slot <= pos) | (pos >= C)
+    if window > 0:
+        valid &= torch.remainder(torch.remainder(pos, C) - slot, C) < window
+    return valid
+
+
+def decode_attention_ref(q, k_cache, v_cache, pos, *, window=0):
+    """q (B,1,Hq,hd); ring caches (B,C,Hkv,hd); ``pos`` the shared
+    position of the new token (int or 0-d tensor) → (B,1,Hq,hd).
+
+    Invalid slots are replaced by zeros before any product, so a NaN in
+    an unwritten slot cannot reach ``p·v``."""
+    B, _, Hq, hd = q.shape
+    C, Hkv = k_cache.shape[1], k_cache.shape[2]
+    valid = ring_valid(C, pos, window, q.device)
+    rows = valid[None, :, None, None]
+    k = torch.where(rows, k_cache, torch.zeros_like(k_cache)).float()
+    v = torch.where(rows, v_cache, torch.zeros_like(v_cache)).float()
+    kr = k.repeat_interleave(Hq // Hkv, dim=2)
+    vr = v.repeat_interleave(Hq // Hkv, dim=2)
+    s = torch.einsum("bhd,bshd->bhs", q[:, 0].float(), kr) * hd ** -0.5
+    s = torch.where(valid[None, None], s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhs,bshd->bhd", p, vr)
+    return o[:, None].to(q.dtype)
 
 
 def fused_paged_decode_ref(q, k_new, v_new, k_pages, v_pages, lengths,

@@ -5,12 +5,19 @@ KV cache, on the card unless ``--device cpu`` is given.
         --requests 8 --max-new 16
     ... --chunk-tokens 32   # chunked prefill + fused decode/sampling
     ... --device cpu        # plain PyTorch versions of the kernels
+    ... --virtualized --policy {fev,bev,hybrid,wfq,slo} [--slo-ms 50]
+                            # every step through a VMM tenant's data plane
 
 Requests are submitted with varying prompt lengths and token budgets;
 the engine admits them into batch slots as earlier requests finish —
 each newcomer prefills alone into pages leased from the MMU, so slot
 recycling and page faults are visible in the completion log. Weights
-are random, drawn from ``--seed``.
+are random, drawn from ``--seed``. Under ``--virtualized`` the KV pages
+lease segments from the tenant's MMU pool (sized from the card's free
+memory once the weights are on it, or 1 GiB on the CPU), newcomers defer
+under pool pressure, every prefill and
+decode step runs through ``tenant.device.run``, and the VMM's stats print
+at the end.
 """
 from __future__ import annotations
 
@@ -42,6 +49,12 @@ def main(argv=None):
     ap.add_argument("--metrics", action="store_true",
                     help="enable the telemetry plane; prints TTFT and the "
                          "Prometheus exposition at exit")
+    ap.add_argument("--virtualized", action="store_true",
+                    help="route every step through a VMM tenant")
+    ap.add_argument("--policy", default="hybrid",
+                    choices=["fev", "bev", "hybrid", "wfq", "slo"])
+    ap.add_argument("--slo-ms", type=float, default=50.0,
+                    help="per-op wait budget for --policy slo")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config
@@ -58,10 +71,13 @@ def main(argv=None):
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = model.compute_params(model.init(gen))
-    engine = ServeEngine(cfg, model, args.batch, args.capacity,
-                         page_size=args.page_size, obs=obs,
-                         obs_tenant="server",
-                         chunk_tokens=args.chunk_tokens)
+    vmm = None
+    kw = dict(page_size=args.page_size, obs=obs, obs_tenant="server",
+              chunk_tokens=args.chunk_tokens)
+    if args.virtualized:
+        vmm, tenant = virtual_server(device, args.policy, args.slo_ms, obs)
+        kw.update(virtualized_engine_kw(tenant))
+    engine = ServeEngine(cfg, model, args.batch, args.capacity, **kw)
 
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
@@ -102,7 +118,42 @@ def main(argv=None):
                       f"p95={1e3 * ttft['p95']:.1f}ms")
         print("[obs] prometheus exposition:")
         print(obs.prometheus())
+    if vmm is not None:
+        print("[serve] vmm stats:", vmm.stats())
+        vmm.shutdown()
     return engine
+
+
+def virtual_server(device, policy="hybrid", slo_ms=50.0, obs=None):
+    """A one-slice VMM over ``device`` and its admitted, opened tenant
+    ``server``. The pool is sized from the card's free memory (what the
+    weights and caches already hold is not counted twice); a CPU device
+    gets 1 GiB (16 MiB segments)."""
+    from repro_torch.core import VMM
+    grid = np.empty((1, 1), dtype=object)
+    grid[0, 0] = torch.device(device)
+    hbm = None if torch.device(device).type == "cuda" else 1 << 30
+    vmm = VMM(grid, policy=policy, hbm_per_chip=hbm, obs=obs)
+    vm_kw = {"sched_slo_wait_s": slo_ms / 1e3} if policy == "slo" else {}
+    tenant = vmm.create_vm("server", (1, 1), **vm_kw)
+    tenant.device.open()
+    return vmm, tenant
+
+
+def virtualized_engine_kw(tenant):
+    """``ServeEngine`` keywords that route every prefill and decode step
+    through ``tenant.device.run`` (the VMM data plane), lease KV pages
+    from the tenant's MMU pool and defer newcomers under pool pressure."""
+    from repro_torch.serving import pool_pressure_gate
+
+    def mediate(fn):
+        def run(*a):
+            tenant.program = fn
+            return tenant.device.run(*a)
+        return run
+    return {"pool": tenant.pool, "prefill_wrap": mediate,
+            "decode_wrap": mediate,
+            "admission_gate": pool_pressure_gate(tenant.pool)}
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
 """Attention, dense subset — the PyTorch counterparts of
 ``repro.models.attention``: QKV projection with bias, the direct
 (one masked score tensor) attention core, full-sequence self-attention
-through the flash op, paged decode through the fused op, and chunked
-prefill against leased pages in plain PyTorch.
+through the flash op (with ring caches of any capacity), one-token
+decode against a ring cache through the ring decode op, paged decode
+through the fused op, and chunked prefill against leased pages in plain
+PyTorch.
 
 GQA is computed in grouped form where a kernel does it (head
 arithmetic, no repeated K/V) and with ``repeat_kv`` in the plain core,
@@ -13,8 +15,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels.decode_attention.ops import fused_decode_step_op
+from repro_torch.kernels.decode_attention.ops import (decode_attention_op,
+                                                      fused_decode_step_op)
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.models.layers import apply_rope, dense_init, dt
 
@@ -87,16 +91,61 @@ def attention_core(q, k, v, *, q_pos, k_pos):
 # ---------------------------------------------------------------------------
 
 
-def attn_full(cfg, p, x, positions):
+def attn_full(cfg, p, x, positions, cache_capacity=0):
     """Causal self-attention over a full sequence through the flash op.
-    Returns (y, {"k","v"}) with the roped K/V (B,S,Hkv,hd) in compute
-    dtype — the cache the engine scatters into its pages."""
+    Returns (y, {"k","v"}) with the roped K/V in compute dtype. With no
+    ``cache_capacity`` (or C == S) the cache is (B,S,Hkv,hd) — what the
+    engine scatters into its pages; with C > S it is padded with zeros to
+    C slots; with C < S it keeps the last C tokens, rolled so that
+    position p lives at ring slot p % C (``attention.py:252-262`` of the
+    reference)."""
+    S = x.shape[1]
     q, k, v = _project_qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     y = flash_attention_op(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=True)
-    return _out_proj(cfg, p, y), {"k": k, "v": v}
+    C = cache_capacity or S
+    if C >= S:
+        pad = (0, 0, 0, 0, 0, C - S)
+        cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+    else:
+        shift = (S - C) % C
+        cache = {"k": torch.roll(k[:, S - C:], shift, dims=1),
+                 "v": torch.roll(v[:, S - C:], shift, dims=1)}
+    return _out_proj(cfg, p, y), cache
+
+
+# ---------------------------------------------------------------------------
+# Decode: one token against a contiguous ring cache (updated in place)
+# ---------------------------------------------------------------------------
+
+
+def position_vector(pos, device):
+    """The decode position as a (1,) int64 tensor on ``device``: from a
+    Python int, or from a 0-d device tensor without a host sync."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1).to(device=device, dtype=torch.long)
+    return torch.tensor([int(pos)], dtype=torch.long, device=device)
+
+
+def attn_decode(cfg, p, x1, cache, pos, pvec):
+    """x1 (B,1,D); cache ring {"k","v"} (B,C,Hkv,hd) — **updated in
+    place**: the new token's K/V are written at slot ``pos % C`` with
+    ``index_copy_`` on a device index (no host sync), then the token
+    attends over the ``min(pos+1, C)`` valid slots through the ring
+    decode op. ``pos`` is the shared position (int or 0-d int32 tensor,
+    handed to the kernel as is); ``pvec`` the same as a (1,) int64
+    tensor. Returns y (B,1,D)."""
+    C = cache["k"].shape[1]
+    q, k, v = _project_qkv(cfg, p, x1)
+    q = apply_rope(q, pvec, cfg.rope_theta)
+    k = apply_rope(k, pvec, cfg.rope_theta)
+    slot = torch.remainder(pvec, C)
+    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    o = decode_attention_op(q.contiguous(), cache["k"], cache["v"], pos)
+    return _out_proj(cfg, p, o)
 
 
 # ---------------------------------------------------------------------------

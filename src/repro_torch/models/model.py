@@ -103,15 +103,49 @@ class Model:
     # ------------------------------------------------------------------
     # Prefill → (last-token logits, K/V caches)
     # ------------------------------------------------------------------
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, capacity=None):
         """batch {"tokens": (B, S)} → (logits (B, V*), caches {"k","v"}
-        (L, B, S, Hkv, hd))."""
+        (L, B, C, Hkv, hd)): C = S with no ``capacity``, else ring caches
+        of ``capacity`` slots (position p at slot p % C)."""
         tokens = batch["tokens"]
         x = self._embed_tokens(params, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x, caches = lm.apply_stack_full(self.cfg, params["layers"], x,
-                                        positions)
+                                        positions, capacity or 0)
         return self._lm_logits(params, x[:, -1:])[:, 0], caches
+
+    # ------------------------------------------------------------------
+    # Decode: one token against contiguous ring caches
+    # ------------------------------------------------------------------
+    def decode(self, params, caches, token, pos):
+        """token (B,1) int; pos the shared position (int or 0-d int32
+        tensor on the caches' device) → (logits (B, V*), caches), the
+        caches updated in place at slot ``pos % C``."""
+        x = self._embed_tokens(params, token)
+        x = lm.apply_stack_decode_ring(self.cfg, params["layers"], x,
+                                       caches, pos)
+        return self._lm_logits(params, x[:, -1:])[:, 0], caches
+
+    def init_cache(self, batch_size, capacity):
+        """Zeroed ring caches {"k","v"}: (L, B, C, Hkv, hd)."""
+        return lm.init_stack_cache(self.cfg, self.specs, batch_size,
+                                   capacity, self.device)
+
+    def input_specs(self, cell):
+        """→ batch dict of meta tensors (shape and dtype, no data) for a
+        ``ShapeCell`` — the stand-in for the reference's
+        ``ShapeDtypeStruct``s."""
+        B, S = cell.global_batch, cell.seq_len
+
+        def meta(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+        if cell.kind == "decode":
+            return {"token": meta((B, 1), torch.int32)}
+        batch = {"tokens": meta((B, S), torch.int32)}
+        if cell.kind == "train":
+            batch["labels"] = meta((B, S), torch.int32)
+            batch["mask"] = meta((B, S), torch.float32)
+        return batch
 
     # ------------------------------------------------------------------
     # Paged serving path (MMU-backed KV pages; see serving/paged_kv.py)

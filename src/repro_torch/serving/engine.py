@@ -22,6 +22,12 @@ Host-side sampling (monolithic mode, and the first token after the last
 prefill chunk) uses a seeded numpy RNG, draw for draw as the reference
 does. ``submit()`` returns a request id; ``future(rid)`` exposes a
 ``concurrent.futures.Future`` resolved with the finished ``Request``.
+
+Virtualized serving (``launch/serve.py --virtualized``) passes
+``prefill_wrap``/``decode_wrap``, which route every model step through a
+VMM tenant's data plane (on a broker thread under the queued policies),
+a ``pool`` that is the tenant's MMU pool, and an ``admission_gate`` such
+as :func:`pool_pressure_gate` that defers newcomers under pool pressure.
 """
 from __future__ import annotations
 
@@ -30,11 +36,12 @@ import threading
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.analysis.lock_watchdog import note_callback
 from repro_torch.core.mmu import MMUError
 from repro_torch.obs import (NULL_HUB, PHASE_ADMITTED, PHASE_DECODE,
                              PHASE_DEFERRED, PHASE_PREFILL,
@@ -72,11 +79,14 @@ class EngineStats:
 
 class ServeEngine:
     def __init__(self, cfg, model, batch_size: int, capacity: int,
-                 page_size: int = 16, pool=None, eos_id: int = -1,
+                 page_size: int = 16, pool=None,
+                 prefill_wrap: Optional[Callable] = None,
+                 decode_wrap: Optional[Callable] = None,
+                 extra_batch: Optional[dict] = None, eos_id: int = -1,
+                 admission_gate: Optional[Callable] = None,
                  seed: int = 0, obs=None, obs_tenant: str = "serve",
                  chunk_tokens: int = 0, share_prefix: bool = False,
-                 swap: bool = False, state_paging: bool = False,
-                 extra_batch: Optional[dict] = None):
+                 swap: bool = False, state_paging: bool = False):
         if state_paging or extra_batch:
             raise NotImplementedError(
                 "serving: paged recurrent state and vlm/enc-dec frontends "
@@ -87,6 +97,9 @@ class ServeEngine:
         self.B = batch_size
         self.capacity = capacity
         self.eos_id = eos_id
+        # admission_gate(owner, n_pages) -> bool: False defers the
+        # newcomer before the MMU is asked (pool-pressure hook)
+        self.admission_gate = admission_gate
         self.chunk_tokens = int(chunk_tokens)
         self._chunked = self.chunk_tokens > 0
         self.obs = obs if obs is not None else NULL_HUB
@@ -120,6 +133,14 @@ class ServeEngine:
         self._cursor = np.full(batch_size, -1, np.int64)
         self._next = np.zeros(batch_size, np.int64)
         self._rr = 0                     # chunk-scheduler rotation
+        # model steps, optionally wrapped (virtualized serving routes each
+        # through a VMM tenant's data plane)
+        def wrap(w, fn):
+            return w(fn) if w is not None else fn
+        self._prefill_fn = wrap(prefill_wrap, model.prefill)
+        self._chunk_fn = wrap(prefill_wrap, model.prefill_chunk_paged)
+        self._decode_fn = wrap(decode_wrap, model.decode_paged)
+        self._fused_fn = wrap(decode_wrap, model.decode_paged_fused)
 
     def _dev(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -178,8 +199,21 @@ class ServeEngine:
             # chunks fault the rest of the table in incrementally
             lease_len = (min(plen, self.chunk_tokens) if self._chunked
                          else plen)
+            owner = f"req{req.rid}"
+            live = any(s is not None for s in self.slots)
+            if self.admission_gate is not None:
+                note_callback("engine.admission_gate")
+            if (self.admission_gate is not None and live
+                    and not self.admission_gate(
+                        owner, max(1, -(-lease_len // self.kv.page_size)))):
+                # pool pressure: defer the newcomer before touching the
+                # MMU. Advisory only — with no live slot (nothing will
+                # ever free a page) the lease is tried, so exhaustion
+                # still surfaces as MMUError below
+                self._defer(req, "pool_pressure")
+                break
             try:
-                self.kv.admit(i, f"req{req.rid}", plen, lease_len=lease_len)
+                self.kv.admit(i, owner, plen, lease_len=lease_len)
             except MMUError as exc:
                 # pool exhausted / quota: requeue at the front, retry
                 # next step once EOS recycling returns pages
@@ -200,7 +234,7 @@ class ServeEngine:
                 self.positions[i] = -1
                 self._cursor[i] = 0
                 continue
-            logits, caches = self.model.prefill(
+            logits, caches = self._prefill_fn(
                 params, {"tokens": self._dev(req.prompt[None])})
             self.kv.write_prefill(caches, i, plen)
             if self.obs.enabled:
@@ -270,7 +304,7 @@ class ServeEngine:
             grown = self.kv.tables[i].n_pages - before
             self.stats.page_faults += grown
             self.stats.pages_leased += grown
-            logits, self.kv.state = self.model.prefill_chunk_paged(
+            logits, self.kv.state = self._chunk_fn(
                 params, self.kv.state,
                 self._dev(req.prompt[None, start:start + c]),
                 self._dev(self.kv.block_tables()[i]), start)
@@ -391,13 +425,13 @@ class ServeEngine:
             temps = np.zeros(self.B, np.float32)
             for i in remaining:
                 temps[i] = self.slots[i].temperature
-            toks, self.kv.state = self.model.decode_paged_fused(
+            toks, self.kv.state = self._fused_fn(
                 *args, self._dev(temps), self.stats.steps)
             toks = toks.cpu().numpy()
             for i in remaining:
                 self._next[i] = int(toks[i])
         else:
-            logits, self.kv.state = self.model.decode_paged(*args)
+            logits, self.kv.state = self._decode_fn(*args)
             self._logits = logits.float().cpu().numpy()
         if self.obs.enabled:
             for i in remaining:
@@ -431,3 +465,23 @@ class ServeEngine:
             out[hot] = np.argmax(scaled, axis=-1)
         return out
 
+
+def pool_pressure_gate(pool, util_hwm: float = 0.9,
+                       headroom_pages: int = 0) -> Callable:
+    """Admission-pressure hook over a shared ``SegmentPool``.
+
+    Returns ``gate(owner, n_pages) -> bool`` for ``ServeEngine``'s
+    ``admission_gate``: admit only while the pool can cover the ask plus
+    ``headroom_pages`` AND *post-admission* occupancy stays at or under
+    ``util_hwm`` — gating on current occupancy would let one large ask
+    fill the pool outright and re-create the mid-decode ``MMUError``
+    truncation this hook exists to prevent. Under pressure the engine
+    defers the newcomer (it retries once EOS recycling returns pages).
+    """
+    def gate(owner: str, n_pages: int) -> bool:
+        ms = pool.memory_stats()
+        total = max(ms["segments_total"], 1)
+        free = ms["segments_total"] - ms["segments_in_use"]
+        util_after = (ms["segments_in_use"] + n_pages) / total
+        return free >= n_pages + headroom_pages and util_after <= util_hwm
+    return gate

@@ -52,9 +52,19 @@ def test_no_jax_or_repro_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("sub", ["core", "checkpointing", "parallel",
+                                 os.path.join("launch", "apps.py"),
+                                 os.path.join("launch", "serve.py")])
+def test_boundary_checks_cover_the_virtualization_slice(sub):
+    """The AST walk and the fresh-interpreter import below reach the
+    VMM's subpackages and the entry points."""
+    files = [os.path.relpath(p, PORT) for p in _port_files() if p != SMOKE]
+    assert any(f == sub or f.startswith(sub + os.sep) for f in files), sub
+
+
 def test_import_pulls_in_no_jax():
-    """Importing every port module (and the serve entry point) in a
-    fresh interpreter loads neither jax nor repro."""
+    """Importing every port module (and the entry points) in a fresh
+    interpreter loads neither jax nor repro."""
     mods = sorted(
         "repro_torch." + os.path.relpath(p, PORT)[:-3].replace(os.sep, ".")
         .replace(".__init__", "")
@@ -63,6 +73,8 @@ def test_import_pulls_in_no_jax():
             + "".join(f"import {m.removesuffix('.__init__')}\n"
                       for m in mods)
             + "import repro_torch.launch.serve\n"
+            "import repro_torch.launch.apps\n"
+            "import repro_torch.core.vmm\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

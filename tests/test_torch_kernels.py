@@ -4,7 +4,10 @@ them), on the same numpy inputs.
 
 Tolerances are the reference's own: fp32 at 2e-5 (online-softmax
 reassociation only), bf16 at 3e-2 (one bf16 rounding of the output).
-Sampled token ids must match exactly.
+Sampled token ids must match exactly. The paper's apps use
+tests/test_kernels.py's rules: vecadd exactly, matmul at 1e-5·√k
+absolute / 1e-5 relative in fp32 and 2e-1·√k / 2e-1 in bf16, Sobel at
+1e-4.
 """
 import jax
 import jax.numpy as jnp
@@ -13,12 +16,21 @@ import pytest
 import torch
 
 from repro.kernels.decode_attention.ops import (
+    decode_attention_op as jax_ring_decode,
     fused_decode_step_op as jax_fused_decode, sample_tokens_op as jax_sample)
 from repro.kernels.flash_attention.ops import (
     flash_attention_op as jax_flash)
-from repro_torch.kernels.decode_attention.ops import (fused_decode_step_op,
+from repro.kernels.matmul.ops import matmul_op as jax_matmul
+from repro.kernels.sobel.ops import sobel_op as jax_sobel
+from repro.kernels.vecadd.ops import vecadd_op as jax_vecadd
+from repro_torch.kernels.decode_attention.ops import (decode_attention_op,
+                                                      fused_decode_step_op,
                                                       sample_tokens_op)
+from repro_torch.kernels.decode_attention.ref import ring_valid
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
+from repro_torch.kernels.matmul.ops import matmul_op
+from repro_torch.kernels.sobel.ops import sobel_op
+from repro_torch.kernels.vecadd.ops import vecadd_op
 
 torch.set_num_threads(2)
 
@@ -182,6 +194,124 @@ def test_sample_tokens_tie_keeps_first(V):
     ref = jax_sample(jnp.asarray(logits), jnp.asarray(temps),
                      jnp.asarray(zeros))
     np.testing.assert_array_equal(np.asarray(ref), want)
+
+
+# ---------------------------------------------------------------------------
+# ring-cache decode attention (the VMM's decode programs)
+# ---------------------------------------------------------------------------
+
+def _ring_inputs(seed, B, C, Hq, Hkv, hd=32):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, 1, Hq, hd), np.float32),
+            rng.standard_normal((B, C, Hkv, hd), np.float32),
+            rng.standard_normal((B, C, Hkv, hd), np.float32))
+
+
+@pytest.mark.parametrize("C,Hq,Hkv,pos,window",
+                         [(256, 4, 2, 100, 0), (256, 4, 2, 300, 0),
+                          (128, 8, 1, 127, 0), (256, 4, 4, 300, 64),
+                          (96, 4, 2, 40, 16), (96, 4, 1, 250, 30)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_decode_matches_pallas(C, Hq, Hkv, pos, window, dtype):
+    """tests/test_kernels.py's ring cases (partly filled, wrapped, a
+    window over a wrapped ring) plus a C that is not a power of two
+    (the reference halves its block until it divides C); ``pos`` as an
+    int and as a 0-d int32 tensor."""
+    q, k, v = _ring_inputs(C + pos + window, 2, C, Hq, Hkv)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(x, dtype) for x in (q, k, v))
+    want = jax_ring_decode(jq, jk, jv, pos, window=window)
+    for p in (pos, torch.tensor(pos, dtype=torch.int32)):
+        got = decode_attention_op(tq, tk, tv, p, window=window)
+        assert got.shape == tq.shape and got.dtype == tq.dtype
+        _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("pos,window", [(10, 0), (300, 64)])
+def test_ring_decode_nan_in_invalid_slots_never_leaks(pos, window):
+    """Slots the ring has not written (or the window drops) hold NaN:
+    the output must equal the reference's on the same caches with those
+    slots zeroed. The reference kernel multiplies p = 0 into every slot
+    of a block it visits, so it is run on the zeroed caches only."""
+    C = 256
+    q, k, v = _ring_inputs(5, 2, C, 4, 2)
+    bad = ~ring_valid(C, pos, window).numpy()
+    clean_k, clean_v = k.copy(), v.copy()
+    for a, c in ((k, clean_k), (v, clean_v)):
+        a[:, bad] = np.nan
+        c[:, bad] = 0.0
+    got = decode_attention_op(*(torch.from_numpy(x) for x in (q, k, v)),
+                              pos, window=window)
+    want = jax_ring_decode(jnp.asarray(q), jnp.asarray(clean_k),
+                           jnp.asarray(clean_v), pos, window=window)
+    assert torch.isfinite(got).all()
+    _close(got, want, "float32")
+
+
+def test_ring_valid_is_the_last_slots_in_ring_order():
+    """The valid slots are the last min(pos+1, C, window) positions, i.e.
+    at most two contiguous runs ending at pos % C (what the CUDA kernel
+    walks)."""
+    C = 16
+    for pos in range(0, 3 * C):
+        for window in (0, 1, 5, 16, 40):
+            n = min(pos + 1, C) if window == 0 else min(pos + 1, C, window)
+            want = np.zeros(C, bool)
+            for j in range(n):
+                want[(pos - j) % C] = True
+            np.testing.assert_array_equal(ring_valid(C, pos, window).numpy(),
+                                          want)
+
+
+# ---------------------------------------------------------------------------
+# the paper's apps: vecadd, matmul, sobel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [128, 16384, 50000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vecadd_matches_pallas(n, dtype):
+    rng = np.random.default_rng(n)
+    (jx, tx), (jy, ty) = (_pair(rng.standard_normal(n, np.float32), dtype)
+                          for _ in range(2))
+    got = vecadd_op(tx, ty)
+    assert got.dtype == tx.dtype and got.shape == (n,)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(jax_vecadd(jx, jy), np.float32))
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (256, 512, 128),
+                                   (100, 300, 50), (33, 17, 9)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_matches_pallas(m, k, n, dtype):
+    rng = np.random.default_rng(m + k + n)
+    jx, tx = _pair(rng.standard_normal((m, k), np.float32), dtype)
+    jy, ty = _pair(rng.standard_normal((k, n), np.float32), dtype)
+    got = matmul_op(tx, ty)
+    assert got.dtype == tx.dtype and got.shape == (m, n)
+    tol = 1e-5 if dtype == "float32" else 2e-1
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(jax_matmul(jx, jy), np.float32),
+                               atol=tol * np.sqrt(k), rtol=tol)
+
+
+@pytest.mark.parametrize("h,w", [(64, 128), (100, 180), (256, 256)])
+def test_sobel_matches_pallas(h, w):
+    img = np.random.default_rng(h * w).standard_normal((h, w), np.float32)
+    got = sobel_op(torch.from_numpy(img))
+    assert got.shape == (h, w) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jax_sobel(jnp.asarray(img))),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_app_wrappers_check_shapes():
+    with pytest.raises(ValueError):
+        vecadd_op(torch.zeros(4), torch.zeros(5))
+    with pytest.raises(ValueError):
+        matmul_op(torch.zeros(2, 3), torch.zeros(4, 2))
+    with pytest.raises(ValueError):
+        sobel_op(torch.zeros(2, 3, 4))
+    with pytest.raises(ValueError):
+        vecadd_op(torch.zeros(4), torch.zeros(4, device="meta"))
 
 
 def test_wrappers_reject_mixed_devices():

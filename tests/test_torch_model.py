@@ -175,3 +175,80 @@ def test_compute_params_keeps_numbers(pair):
     a, _ = m.prefill(p, {"tokens": toks})
     b, _ = m.prefill(m.compute_params(p), {"tokens": toks})
     assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Ring caches and one-token decode (the VMM's programs), against the
+# reference's Pallas path (``use_pallas=True``, interpret mode) in fp32
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ring_pair():
+    jcfg = dataclasses.replace(jax_get_config("qwen1.5-0.5b", reduced=True),
+                               compute_dtype="float32", use_pallas=True)
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b", reduced=True),
+                              compute_dtype="float32")
+    jm = jax_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(3))
+    return cfg, jm, jp, Model(cfg, device="cpu"), params_from_jax(
+        jax.device_get(jp))
+
+
+@pytest.mark.parametrize("C", [24, 13, 8])
+def test_ring_prefill_caches_match(ring_pair, C):
+    """C ≥ S pads with zeros; C < S keeps the last C tokens rolled so
+    that position p sits at slot p % C — slot for slot as the
+    reference lays them out."""
+    from repro_torch.bridge import caches_from_jax
+    cfg, jm, jp, m, p = ring_pair
+    toks = np.stack([_prompt(13, 7, cfg.vocab), _prompt(13, 8, cfg.vocab)])
+    want, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, capacity=C)
+    got, tc = m.prefill(p, {"tokens": torch.from_numpy(toks)}, capacity=C)
+    assert tc["k"].shape == (cfg.n_layers, 2, C, cfg.n_kv_heads, cfg.d_head)
+    ref = caches_from_jax(jax.device_get(jc))
+    for kk in ("k", "v"):
+        _close(tc[kk], ref[kk].numpy(), 1e-4)
+    _close(got[:, :cfg.vocab], np.asarray(want)[:, :cfg.vocab], 1e-4)
+
+
+@pytest.mark.parametrize("C,S", [(16, 12), (8, 13)])
+def test_ring_decode_logits_over_a_wrapping_ring(ring_pair, C, S):
+    """Greedy decode steps that run past the ring's capacity: logits and
+    caches agree with the reference's Pallas decode at every step; the
+    port's position may be an int or a 0-d tensor."""
+    from repro_torch.bridge import caches_from_jax
+    cfg, jm, jp, m, p = ring_pair
+    toks = np.stack([_prompt(S, 9, cfg.vocab), _prompt(S, 10, cfg.vocab)])
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, capacity=C)
+    _, tc = m.prefill(p, {"tokens": torch.from_numpy(toks)}, capacity=C)
+    jdec = jax.jit(jm.decode)
+    tok = np.argmax(np.asarray(jl)[:, :cfg.vocab], -1)[:, None].astype(
+        np.int32)
+    for i, pos in enumerate(range(S, S + C + 3)):
+        jl, jc = jdec(jp, jc, jnp.asarray(tok), jnp.int32(pos))
+        tpos = pos if i % 2 else torch.tensor(pos, dtype=torch.int32)
+        got, tc = m.decode(p, tc, torch.from_numpy(tok), tpos)
+        _close(got[:, :cfg.vocab], np.asarray(jl)[:, :cfg.vocab], 1e-4)
+        tok = np.argmax(np.asarray(jl)[:, :cfg.vocab], -1)[:, None].astype(
+            np.int32)
+    ref = caches_from_jax(jax.device_get(jc))
+    for kk in ("k", "v"):
+        _close(tc[kk], ref[kk].numpy(), 1e-4)
+
+
+def test_init_cache_and_input_specs_match(ring_pair):
+    from repro.configs.base import ShapeCell as JaxShapeCell
+    from repro_torch.configs.base import ShapeCell
+    cfg, jm, jp, m, p = ring_pair
+    jc = jax.eval_shape(lambda: jm.init_cache(3, 20))
+    tc = m.init_cache(3, 20)
+    assert tuple(tc["k"].shape) == jc[0][0]["mixer"]["k"].shape
+    assert not tc["k"].any() and tc["k"].dtype == torch.float32
+    for kind in ("prefill", "decode", "train"):
+        want = jm.input_specs(JaxShapeCell("c", 32, 4, kind))
+        got = m.input_specs(ShapeCell("c", 32, 4, kind))
+        assert sorted(got) == sorted(want)
+        for k in got:
+            assert got[k].device.type == "meta"
+            assert tuple(got[k].shape) == want[k].shape
+            assert str(got[k].dtype)[6:] == str(want[k].dtype)
