@@ -11,10 +11,13 @@ Phases, each printing its lines and raising on any failure:
 2. kernels — every hand-written kernel against its plain PyTorch
    version on the card, each against a stated tolerance: flash, fused
    paged decode and the sampler at the serving path's shapes (G > 1, a
-   dead slot, NaN-poisoned masked rows, a cross-block tie); ring-cache
-   decode at C=4096 (partly filled, wrapped, windowed, NaN in invalid
-   slots, ``pos`` on the device); matmul, Sobel and vecadd at ragged and
-   card shapes;
+   dead slot, NaN-poisoned masked rows, a cross-block tie) and at
+   recurrentgemma's hd=256, Hq/Hkv 10/1 with windows; ring-cache decode
+   at C=4096 (partly filled, wrapped, windowed, NaN in invalid slots,
+   ``pos`` on the device); matmul, Sobel and vecadd at ragged and card
+   shapes; the RG-LRU scan and the RWKV-6 WKV at ragged, serving and
+   B=4 S=4096 shapes (plus an extreme decay); the no-new-token paged
+   decode with a dead slot and NaN-poisoned rows;
 3. serve, monolithic — full-width ``qwen1.5-0.5b`` (random weights from
    a fixed seed) through ``ServeEngine``: 8 requests, batch 4, prompts of
    32–130 tokens, 32 new tokens each, capacity 256, 16-token pages;
@@ -26,27 +29,34 @@ Phases, each printing its lines and raising on any failure:
    chunked: token ids equal phases 3–4 (or the printed reason),
    ``full_prefills == 0``, leased == freed, no scheduler or CRC failure,
    an op-log record per step;
-6. VMM programs — a tenant reprograms the full-width prefill program
+6. serve, recurrent — full-width ``recurrentgemma-2b`` and ``rwkv6-7b``
+   (full depth, bf16, random weights from a fixed seed) with paged
+   recurrent state, the same requests in both modes; state pages
+   leased == freed too, each model freed before the next;
+7. VMM programs — a tenant reprograms the full-width prefill program
    (B=4, S=4096) and the decode program of the same capacity, runs the
    prefill and 32 greedy decode steps through the guest API at pos
    4096…4127 (``decode_attention`` 24 times a step), takes a warm hit,
    and a cross-slice reprogram is refused;
-7. reference — the card against the plain PyTorch path on the CPU:
+8. reference — the card against the plain PyTorch path on the CPU:
    full-width fp32 prefill logits and reduced-config engine token ids in
-   both modes; the step builders' full-width fp32 decode logits and
-   reduced-config decode ids over a wrapped ring;
-8. apps — the paper's three apps (``launch/apps.py``) native and through
+   both modes (qwen, and both recurrent families at full width cut to
+   one block period, with 3 paged decode steps); the step builders'
+   full-width fp32 decode logits and reduced-config decode ids over a
+   wrapped ring;
+9. apps — the paper's three apps (``launch/apps.py``) native and through
    three bound tenants, at the reference size and at the card's;
-9. times — per mode TTFT, throughput and the median engine step; per
+10. times — per mode TTFT, throughput and the median engine step; per
    kernel its device time (torch.profiler/CUPTI; the per-call CUDA-event
    time is printed beside it), its plain version's, one PyTorch call
    computing the same function (``library_ms``, a yardstick the port
-   never calls) and the bound.
+   never calls; none for the two recurrences) and the bound.
 
 On every path, the launch counters are set to 0 just before it runs and
 read just after; each kernel of the path must have launched.
 ``--profile`` adds a torch.profiler pass over steady decode steps of
-both serving modes (device busy share, top device-time entries).
+both serving modes of every served model (device busy share, top
+device-time entries).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -68,10 +78,11 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (data sheet)
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 TOL = {"bfloat16": 3e-2, "float32": 2e-5}
-# ring decode in bf16: its full-ring outputs are O(0.03), so a fixed 3e-2
-# would pass a wrong kernel; each element must lie within two bf16 ulps
-# of the plain output instead (|err| <= 2^-6 |want| + 1e-5)
-RING_BF16_RTOL, RING_BF16_ATOL = 2.0 ** -6, 1e-5
+# bf16 attention over long spans (ring decode, and the hd-256 / paged
+# decode checks): outputs average O(0.03), so a fixed 3e-2 would pass a
+# wrong kernel; each element must lie within two bf16 ulps of the plain
+# output instead (|err| <= 2^-6 |want| + 1e-5)
+BF16_ULP_RTOL, BF16_ULP_ATOL = 2.0 ** -6, 1e-5
 
 KERNELS = {
     "flash_attention": {
@@ -98,6 +109,16 @@ KERNELS = {
     "sobel": {
         "source": "src/repro_torch/kernels/csrc/sobel.cu",
         "replaces": "src/repro/kernels/sobel/sobel.py:43"},
+    "paged_decode_attention": {
+        "source": "src/repro_torch/kernels/csrc/fused_paged_decode.cu",
+        "replaces":
+            "src/repro/kernels/decode_attention/decode_attention.py:181"},
+    "rglru_scan": {
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/rglru_scan.py:43"},
+    "rwkv6_wkv": {
+        "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+        "replaces": "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:76"},
 }
 PATH_KERNELS = {"monolithic": ("flash_attention", "fused_paged_decode"),
                 "chunked": ("fused_paged_decode", "sample_tokens"),
@@ -107,7 +128,17 @@ PATH_KERNELS = {"monolithic": ("flash_attention", "fused_paged_decode"),
                                         "sample_tokens"),
                 "vmm-programs": ("flash_attention", "decode_attention"),
                 "apps": ("matmul", "sobel", "vecadd"),
-                "virtualized-apps": ("matmul", "sobel", "vecadd")}
+                "virtualized-apps": ("matmul", "sobel", "vecadd"),
+                "recurrentgemma-monolithic": ("rglru_scan", "flash_attention",
+                                              "fused_paged_decode"),
+                "recurrentgemma-chunked": ("rglru_scan", "fused_paged_decode",
+                                           "sample_tokens"),
+                "rwkv6-monolithic": ("rwkv6_wkv",),
+                "rwkv6-chunked": ("rwkv6_wkv", "sample_tokens")}
+#: the recurrent families served at full width: arch, path name, and the
+#: depth of the card-vs-CPU reference (one block period)
+RECURRENT_ARCHS = (("recurrentgemma-2b", "recurrentgemma", 3),
+                   ("rwkv6-7b", "rwkv6", 2))
 
 
 def log(*a):
@@ -168,16 +199,21 @@ def wall_ms(fn, reps=50, warmup=5):
     return statistics.median(times)
 
 
-def timed(fn):
+def timed(fn, reps=50, warmup=5):
     """→ (device ms, event ms) of one call."""
-    return device_ms(fn), wall_ms(fn)
+    return (device_ms(fn, reps=reps, warmup=warmup),
+            wall_ms(fn, reps=reps, warmup=warmup))
 
 
 def bound(nbytes, flops, peak):
+    """The least time for the work: bytes over the memory rate or
+    operations over ``peak``, whichever is longer; the row keeps both
+    counts so the printed bound can be recomputed."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations")
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": int(nbytes), "bound_flops": int(flops)}
 
 
 # ---------------------------------------------------------------------------
@@ -220,14 +256,16 @@ def decode_inputs(lens, Hq, Hkv, dtype, device, seed, ps=16, nb=16, hd=64):
             "block_tables": perm.reshape(B, nb).to(torch.int32)}
 
 
-def poison_masked_rows(d, window=0):
-    """NaN into every pool row the slots' lengths (and window) mask."""
+def poison_masked_rows(d, window=0, new_token=True):
+    """NaN into every pool row the slots' lengths (and window) mask; with
+    ``new_token`` the row at ``lengths-1`` is masked too (the fused
+    kernel takes that token from ``k_new``/``v_new``)."""
     import torch
     P, ps = d["k_pages"].shape[:2]
     live = torch.zeros((P, ps), dtype=torch.bool)
     for b, L in enumerate(d["lengths"].tolist()):
         lo = max(0, L - window) if window else 0
-        for t in range(lo, max(L - 1, 0)):
+        for t in range(lo, max(L - 1 if new_token else L, 0)):
             live[int(d["block_tables"][b, t // ps]), t % ps] = True
     live = live.to(d["k_pages"].device)
     for kk in ("k_pages", "v_pages"):
@@ -316,6 +354,7 @@ def check_kernels(device, errs):
     errs["sample_tokens"] = 0.0
     check_ring_decode(device, errs)
     check_app_kernels(device, errs)
+    check_recurrent_kernels(device, errs)
 
 
 def ring_inputs(B, C, Hq, Hkv, dtype, device, seed, hd=64):
@@ -361,7 +400,7 @@ def check_ring_decode(device, errs):
                         f"nan_invalid={nan} {dn}")
                 if dt == torch.bfloat16:
                     err = _expect_close("decode_attention", what, got, want,
-                                        RING_BF16_ATOL, RING_BF16_RTOL)
+                                        BF16_ULP_ATOL, BF16_ULP_RTOL)
                 else:
                     if not bool(torch.isfinite(got).all()):
                         raise AssertionError("decode_attention: non-finite "
@@ -429,6 +468,132 @@ def check_app_kernels(device, errs):
     errs["vecadd"] = 0.0
 
 
+def rglru_inputs(B, S, D, device, seed):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.rand((B, S, D), generator=g, device=device) * 0.499 + 0.5
+    b = torch.randn((B, S, D), generator=g, device=device)
+    return a, b, torch.randn((B, D), generator=g, device=device)
+
+
+def wkv_inputs(B, H, S, K, device, seed):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=device)  # noqa: E731
+    return (rn(B, H, S, K), rn(B, H, S, K), rn(B, H, S, K),
+            -torch.exp(rn(B, H, S, K)), rn(H, K), rn(B, H, K, K))
+
+
+def check_recurrent_kernels(device, errs):
+    """The recurrent families' kernels and the attention kernels at their
+    shapes: the RG-LRU scan (fp32, tol 2e-5) at a ragged shape, the
+    serving shape and B=4 S=4096; the RWKV-6 WKV (fp32, atol = rtol =
+    2e-3: the summation order differs) likewise, plus an extreme decay
+    whose carried state must vanish exactly; the no-new-token paged
+    decode with a dead slot and NaN-poisoned rows; flash and fused
+    decode at hd=256, Hq/Hkv 10/1 with windows. Every bf16 output here
+    lies within two bf16 ulps of its plain version (``BF16_ULP_*``)."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_op, fused_decode_step_op)
+    from repro_torch.kernels.decode_attention.ref import (
+        fused_paged_decode_ref, paged_decode_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv_op
+    from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
+
+    for B, S, D in ((2, 100, 300), (1, 130, 2560), (4, 4096, 2560)):
+        a, b, h0 = rglru_inputs(B, S, D, device, seed=S + D)
+        err = _expect("rglru_scan", f"B={B} S={S} D={D} float32",
+                      _max_err(rglru_scan_op(a, b, h0),
+                               rglru_scan_ref(a, b, h0)), TOL["float32"])
+        errs["rglru_scan"] = max(errs.get("rglru_scan", 0), err)
+
+    for B, H, S, K in ((2, 2, 70, 32), (1, 64, 130, 64), (4, 64, 4096, 64)):
+        ins = wkv_inputs(B, H, S, K, device, seed=S + K)
+        o, sf = rwkv6_wkv_op(*ins)
+        o_ref, sf_ref = rwkv6_wkv_ref(*ins)
+        what = f"B={B} H={H} S={S} K={K} float32"
+        err = max(_expect_close("rwkv6_wkv", what + " o", o, o_ref, 2e-3,
+                                2e-3),
+                  _expect_close("rwkv6_wkv", what + " s_final", sf, sf_ref,
+                                2e-3, 2e-3))
+        errs["rwkv6_wkv"] = max(errs.get("rwkv6_wkv", 0), err)
+    # extreme decay: exp(-50) per step underflows the carried state to 0
+    one = torch.ones((1, 1, 64, 32), device=device)
+    o, sf = rwkv6_wkv_op(one, torch.zeros_like(one), one,
+                         torch.full_like(one, -50.0),
+                         torch.zeros((1, 32), device=device),
+                         torch.full((1, 1, 32, 32), 1e3, device=device))
+    gone = bool((o[:, :, 3:] == 0).all()) and bool((sf == 0).all())
+    finite = bool(torch.isfinite(o).all()) and bool(torch.isfinite(sf).all())
+    log(f"[kernel] rwkv6_wkv logw=-50, s0=1e3, k=0: finite={finite}, "
+        f"state contributes exactly 0 from step 3 on: {gone} "
+        f"{'ok' if finite and gone else 'FAIL'}")
+    if not (finite and gone):
+        raise AssertionError("rwkv6_wkv: extreme decay not safe")
+
+    lens = [37, 0, 129, 256]                  # slot 1 dead; 256 = full table
+    for Hq, Hkv, hd, window, dt in ((16, 16, 64, 0, torch.bfloat16),
+                                    (16, 8, 64, 40, torch.bfloat16),
+                                    (10, 1, 256, 100, torch.bfloat16),
+                                    (16, 8, 64, 0, torch.float32)):
+        d = decode_inputs(lens, Hq, Hkv, dt, device, seed=Hq + hd + window,
+                          hd=hd)
+        for kk in ("k_new", "v_new"):
+            d.pop(kk)
+        poison_masked_rows(d, window, new_token=False)
+        got = decode_attention_op(d["q"], d["k_pages"], d["v_pages"],
+                                  d["lengths"], window=window,
+                                  block_tables=d["block_tables"])
+        want = paged_decode_attention_ref(**d, window=window)
+        if not bool(torch.isfinite(got).all()) or bool((got[1] != 0).any()):
+            raise AssertionError("paged_decode_attention: non-finite output "
+                                 "or dead slot not zero")
+        dn = str(dt).replace("torch.", "")
+        what = (f"B=4 Hq={Hq} Hkv={Hkv} hd={hd} ps=16 nb=16 lens={lens} "
+                f"window={window} nan_masked=True {dn}")
+        if dt != torch.bfloat16:
+            _expect("paged_decode_attention", what, _max_err(got, want),
+                    TOL[dn])
+        else:
+            err = _expect_close("paged_decode_attention", what, got, want,
+                                BF16_ULP_ATOL, BF16_ULP_RTOL)
+            errs["paged_decode_attention"] = max(
+                errs.get("paged_decode_attention", 0), err)
+
+    # recurrentgemma's attention: hd=256, MQA 10/1, window 2048
+    for S, window in ((130, 2048), (130, 48), (2500, 2048)):
+        q, k, v = flash_inputs(S, 10, 1, torch.bfloat16, device, seed=S,
+                               hd=256)
+        err = _expect_close("flash_attention",
+                            f"B=1 S={S} Hq=10 Hkv=1 hd=256 window={window} "
+                            "bfloat16", flash_attention_op(q, k, v,
+                                                           window=window),
+                            flash_attention_ref(q, k, v, window=window),
+                            BF16_ULP_ATOL, BF16_ULP_RTOL)
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+    for lens, nb, window in (([37, 0, 129, 256], 16, 2048),
+                             ([2500, 0, 2100, 700], 160, 2048)):
+        d = decode_inputs(lens, 10, 1, torch.bfloat16, device, seed=nb,
+                          nb=nb, hd=256)
+        poison_masked_rows(d, window)
+        got = fused_decode_step_op(**d, window=window)
+        want = fused_paged_decode_ref(**d, window=window)
+        if not bool(torch.isfinite(got).all()) or bool((got[1] != 0).any()):
+            raise AssertionError("fused_paged_decode: non-finite output or "
+                                 "dead slot not zero")
+        err = _expect_close("fused_paged_decode",
+                            f"B=4 Hq=10 Hkv=1 hd=256 ps=16 nb={nb} "
+                            f"lens={lens} window={window} nan_masked=True "
+                            "bfloat16", got, want, BF16_ULP_ATOL,
+                            BF16_ULP_RTOL)
+        errs["fused_paged_decode"] = max(errs["fused_paged_decode"], err)
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: serve at full width
 # ---------------------------------------------------------------------------
@@ -459,28 +624,39 @@ def serve(cfg, model, params, requests, chunk_tokens, batch=4,
     return eng, [eng.completed[r].out_tokens for r in rids], wall, steps
 
 
-def serve_phase(mode, cfg, model, params, requests, launches):
+def serve_phase(mode, cfg, model, params, requests, launches, path=None,
+                engine_kw=None):
+    """Serve ``requests`` natively in ``mode`` after a two-request
+    warm-up; the launches of the timed run are held to ``path``'s
+    kernels (default: the mode's)."""
     from repro_torch.kernels import common
     from repro_torch.obs import ObsHub
+    path = path or mode
     chunk = 32 if mode == "chunked" else 0
-    serve(cfg, model, params, requests[:2], chunk)          # warm-up run
+    serve(cfg, model, params, requests[:2], chunk,
+          engine_kw=engine_kw)                             # warm-up run
     obs = ObsHub(enabled=True)
     common.reset_launches()
     eng, outs, wall, steps = serve(cfg, model, params, requests, chunk,
-                                   obs=obs)
+                                   obs=obs, engine_kw=engine_kw)
     counts = dict(common.LAUNCHES)
     s = eng.stats
-    log(f"[serve:{mode}] {s.completed} requests, {s.generated_tokens} "
+    log(f"[serve:{path}] {s.completed} requests, {s.generated_tokens} "
         f"tokens in {wall:.3f}s; {s.steps} steps, {s.prefills} prefills "
         f"(full_prefills={s.full_prefills}, chunks={s.prefill_chunks}), "
         f"{s.page_faults} page faults, pages leased={s.pages_leased} "
-        f"freed={s.pages_freed}; launches={counts}")
+        f"freed={s.pages_freed}, state pages leased="
+        f"{s.state_pages_leased} freed={s.state_pages_freed}; "
+        f"launches={counts}")
     if s.completed != len(requests) or any(
             len(o) != n for o, (_, n, _) in zip(outs, requests)):
-        raise AssertionError(f"{mode}: not every request finished")
-    if s.full_prefills != 0 or s.pages_leased != s.pages_freed:
-        raise AssertionError(f"{mode}: paging invariants broken")
-    count_path(mode, counts, launches)
+        raise AssertionError(f"{path}: not every request finished")
+    if s.full_prefills != 0 or s.pages_leased != s.pages_freed \
+            or s.state_pages_leased != s.state_pages_freed:
+        raise AssertionError(f"{path}: paging invariants broken")
+    if any(not 0 <= t < cfg.vocab for o in outs for t in o):
+        raise AssertionError(f"{path}: token id out of range")
+    count_path(path, counts, launches)
     ten = obs.tracer.snapshot()["tenants"]["smoke"]
     return {"ttft_p50_ms": 1e3 * ten["ttft_s"]["p50"],
             "ttft_p95_ms": 1e3 * ten["ttft_s"]["p95"],
@@ -781,15 +957,18 @@ def apps_phase(device, launches):
     return out
 
 
-def profile_phase(mode, cfg, model, params, requests, n_steps=8):
+def profile_phase(mode, cfg, model, params, requests, n_steps=8,
+                  name=None, engine_kw=None):
     """torch.profiler over ``n_steps`` steady decode steps (every slot
     decoding, no admission in the window): device busy share and the
     top device-time entries."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import ServeEngine
+    name = name or mode
     eng = ServeEngine(cfg, model, 4, 256, page_size=16,
-                      chunk_tokens=32 if mode == "chunked" else 0)
+                      chunk_tokens=32 if mode == "chunked" else 0,
+                      **(engine_kw or {}))
     for p, _, t in requests[:4]:
         eng.submit(p, max_new_tokens=n_steps + 16, temperature=t)
     while (eng.positions < 0).any() or eng.waiting:
@@ -805,12 +984,12 @@ def profile_phase(mode, cfg, model, params, requests, n_steps=8):
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
-    log(f"[profile:{mode}] {n_steps} decode steps, B=4: wall "
+    log(f"[profile:{name}] {n_steps} decode steps, B=4: wall "
         f"{wall_us / 1e3:.3f} ms ({wall_us / 1e3 / n_steps:.3f} ms/step), "
         f"device busy {busy / 1e3:.3f} ms, idle share "
         f"{1 - busy / wall_us:.3f}")
     for dev, count, key in rows[:12]:
-        log(f"[profile:{mode}]   {dev / 1e3:9.3f} ms  x{count:<5d} "
+        log(f"[profile:{name}]   {dev / 1e3:9.3f} ms  x{count:<5d} "
             f"{key[:90]}")
 
 
@@ -865,6 +1044,119 @@ def reference_phase(device):
             raise AssertionError(f"engine tokens differ: {a} vs {b}")
 
 
+def recurrent_reference_phase(device):
+    """The recurrent families on the card against the CPU plain path: at
+    full width with the depth cut to one block period (recurrentgemma 3
+    layers, rwkv6 2), fp32 compute, the prefill logits of a 40-token
+    prompt and 3 paged decode steps (the card's greedy token feeds both);
+    then reduced-config engine token ids in both modes with paged
+    recurrent state."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cpu = torch.device("cpu")
+    for arch, _, depth in RECURRENT_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth,
+                                  compute_dtype="float32")
+        m_dev, m_cpu = Model(cfg, device), Model(cfg, cpu)
+        params = m_dev.init(torch.Generator(device=device).manual_seed(17))
+        p_cpu = cpu_tree(params)
+        tok = torch.from_numpy(make_requests(cfg.vocab, 2, seed=8)[1][0][:40]
+                               [None]).long()         # 40 of 130 tokens
+        ps, nb = 16, 4
+        bt = torch.arange(nb, dtype=torch.int32)[None]
+
+        def prefill(m, p, d):
+            lg, caches = m.prefill(p, {"tokens": tok.to(d)})
+            return lg, m.write_prefill_paged(m.init_paged_state(1, nb, ps),
+                                             caches, 0, bt[0].to(d), 40, ps)
+        lg_dev, st_dev = prefill(m_dev, params, device)
+        lg_cpu, st_cpu = prefill(m_cpu, p_cpu, cpu)
+        errs, scale = [], 0.0
+        for step in range(4):
+            got = lg_dev[:, :cfg.vocab].float().cpu()
+            want = lg_cpu[:, :cfg.vocab]
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{arch}: non-finite logits")
+            errs.append(_max_err(got, want))
+            scale = max(scale, float(want.abs().max()))
+            if step == 3:
+                break
+            nxt = got.argmax(-1)[:, None].to(torch.int32)
+            pos = torch.tensor([40 + step], dtype=torch.int32)
+            lg_dev, st_dev = m_dev.decode_paged(params, st_dev,
+                                                nxt.to(device),
+                                                pos.to(device),
+                                                bt.to(device))
+            lg_cpu, st_cpu = m_cpu.decode_paged(p_cpu, st_cpu, nxt, pos, bt)
+        err = max(errs)
+        log(f"[reference] {arch} full width, {depth} layers, fp32: prefill "
+            f"S=40 + 3 paged decode steps, logits card vs CPU: "
+            f"max_abs_err={err:.3g} per step {[f'{e:.3g}' for e in errs]} "
+            f"(max |logit| {scale:.3g}, tol 1e-3) "
+            f"{'ok' if err <= 1e-3 else 'FAIL'}")
+        if err > 1e-3:
+            raise AssertionError(f"{arch}: card and CPU logits disagree")
+        del params, m_dev, st_dev, lg_dev
+        torch.cuda.empty_cache()
+
+        rcfg = dataclasses.replace(get_config(arch, reduced=True),
+                                   compute_dtype="float32")
+        r_dev, r_cpu = Model(rcfg, device), Model(rcfg, "cpu")
+        rp = r_dev.init(torch.Generator(device=device).manual_seed(11))
+        reqs = [(p[:n], 8, 0.0) for (p, _, _), n in
+                zip(make_requests(rcfg.vocab, 5, seed=5), (5, 17, 9, 30, 12))]
+        kw = {"state_paging": True}
+        for chunk in (0, 8):
+            a = serve(rcfg, r_dev, rp, reqs, chunk, batch=3, capacity=64,
+                      page_size=8, engine_kw=kw)[1]
+            b = serve(rcfg, r_cpu, cpu_tree(rp), reqs, chunk, batch=3,
+                      capacity=64, page_size=8, engine_kw=kw)[1]
+            log(f"[reference] {arch} reduced engine chunk={chunk} "
+                f"state_paging token ids card vs CPU: "
+                f"{'identical' if a == b else 'DIFFER'}")
+            if a != b:
+                raise AssertionError(f"{arch} engine tokens differ: {a} vs "
+                                     f"{b}")
+
+
+def recurrent_serve_phases(device, launches):
+    """recurrentgemma-2b and rwkv6-7b at full width and depth (random
+    weights from a fixed seed, bf16 compute) through ``ServeEngine`` with
+    paged recurrent state, monolithic and chunked; each model is freed
+    before the next (rwkv6-7b holds ~30 GB of fp32 weights while its
+    bf16 copy is made)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    modes = {}
+    for arch, short, _ in RECURRENT_ARCHS:
+        cfg = get_config(arch)
+        model = Model(cfg, device)
+        t0 = time.perf_counter()
+        params = model.compute_params(
+            model.init(torch.Generator(device=device).manual_seed(0)))
+        sync(device)
+        log(f"[serve:{short}] {arch}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, vocab {cfg.vocab}; weights made in "
+            f"{time.perf_counter() - t0:.1f}s, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card; "
+            f"state row {model.state_row_bytes()} B per slot, KV page "
+            f"{model.kv_page_bytes(16)} B")
+        requests = make_requests(cfg.vocab)
+        for mode in ("monolithic", "chunked"):
+            path = f"{short}-{mode}"
+            modes[path] = serve_phase(mode, cfg, model, params, requests,
+                                      launches, path=path,
+                                      engine_kw={"state_paging": True})
+            modes[path].pop("outs")
+        del params, model
+        torch.cuda.empty_cache()
+    return modes
+
+
 # ---------------------------------------------------------------------------
 # phase 6: kernel times at the serving path's shapes
 # ---------------------------------------------------------------------------
@@ -886,14 +1178,14 @@ def time_kernels(device):
     q, k, v = flash_inputs(S, H, H, bf16, device, seed=3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     pairs = S * (S + 1) // 2
-    b, by = bound(4 * S * H * hd * 2, H * pairs * 4 * hd, BF16_FLOPS)
+    bnd = bound(4 * S * H * hd * 2, H * pairs * 4 * hd, BF16_FLOPS)
     out["flash_attention"] = {
         "shape": f"B=1 S={S} Hq=Hkv={H} hd={hd} bf16 causal",
         "ms": timed(lambda: flash_attention_op(q, k, v)),
         "plain_ms": timed(lambda: flash_attention_ref(q, k, v)),
         "library_ms": timed(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)),
-        "bound_ms": b, "bound_by": by}
+        **bnd}
 
     # fused decode: B=4, 16 heads, ps=16, nb=16, lengths of a mid-run step
     lens = [64, 161, 96, 143]
@@ -905,7 +1197,7 @@ def time_kernels(device):
     nbytes = (2 * live_rows * H * hd * 2          # K and V pool rows
               + 4 * B * H * hd * 2                # q, k_new, v_new, out
               + 4 * B + 4 * pages)                # lengths, table entries
-    b, by = bound(nbytes, sum(lens) * H * 4 * hd, BF16_FLOPS)
+    bnd = bound(nbytes, sum(lens) * H * 4 * hd, BF16_FLOPS)
     valid = (torch.arange(S_tab, device=device)[None]
              < d["lengths"][:, None])[:, None, None, :]
     bt = d["block_tables"].long()
@@ -922,12 +1214,12 @@ def time_kernels(device):
         "ms": timed(lambda: fused_decode_step_op(**d)),
         "plain_ms": timed(lambda: fused_paged_decode_ref(**d)),
         "library_ms": timed(gather_sdpa),
-        "bound_ms": b, "bound_by": by}
+        **bnd}
 
     # sampler: B=4 rows of the padded vocabulary, fp32
     V = 152064
     logits, temps, noise = sampler_inputs(4, V, device, seed=5)
-    b, by = bound(2 * 4 * V * 4 + 4 * 4 + 4 * 4, 2 * 4 * V, FP32_FLOPS)
+    bnd = bound(2 * 4 * V * 4 + 4 * 4 + 4 * 4, 2 * 4 * V, FP32_FLOPS)
     out["sample_tokens"] = {
         "shape": f"B=4 V={V} fp32",
         "ms": timed(lambda: sample_tokens_op(logits, temps, noise)),
@@ -935,16 +1227,20 @@ def time_kernels(device):
                                                         noise)),
         "library_ms": timed(lambda: torch.argmax(
             logits + noise * temps[:, None], dim=-1)),
-        "bound_ms": b, "bound_by": by}
+        **bnd}
     out.update(time_new_kernels(device))
+    out.update(time_recurrent_kernels(device))
     for name, r in out.items():
+        lib = r["library_ms"]
         log(f"[time] {name} {r['shape']}: device ms (event ms per call) — "
             f"kernel {r['ms'][0]:.4f} ({r['ms'][1]:.4f}), plain "
             f"{r['plain_ms'][0]:.4f} ({r['plain_ms'][1]:.4f}), library "
-            f"{r['library_ms'][0]:.4f} ({r['library_ms'][1]:.4f}); bound "
-            f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+            + (f"{lib[0]:.4f} ({lib[1]:.4f})" if lib else "none")
+            + f"; bound {r['bound_ms']:.6f} ms ({r['bound_by']}: "
+            f"{r['bound_bytes']:,} B, {r['bound_flops']:,} FLOP)")
         for key in ("ms", "plain_ms", "library_ms"):
-            r[key] = r[key][0]                     # the JSON line: device
+            if r[key] is not None:
+                r[key] = r[key][0]                 # the JSON line: device
     return out
 
 
@@ -972,7 +1268,7 @@ def time_new_kernels(device):
     q, k, v = ring_inputs(B, C, H, H, torch.bfloat16, device, seed=8)
     n_valid = int(ring_valid(C, pos, 0, device).sum())
     nbytes = 2 * B * n_valid * H * hd * 2 + 2 * B * H * hd * 2
-    b, by = bound(nbytes, B * n_valid * H * 4 * hd, BF16_FLOPS)
+    bnd = bound(nbytes, B * n_valid * H * 4 * hd, BF16_FLOPS)
     mask = ring_valid(C, pos, 0, device)[None, None, None, :]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     out["decode_attention"] = {
@@ -982,7 +1278,7 @@ def time_new_kernels(device):
         "plain_ms": timed(lambda: decode_attention_ref(q, k, v, pos)),
         "library_ms": timed(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask)),
-        "bound_ms": b, "bound_by": by}
+        **bnd}
 
     # matmul 4096^3: fp32 (the JSON row) and bf16
     M = K = N = 4096
@@ -990,14 +1286,14 @@ def time_new_kernels(device):
                                                     FP32_FLOPS)):
         a, bb = rn(M, K).to(dt), rn(K, N).to(dt)
         esz = a.element_size()
-        b, by = bound((M * K + K * N + M * N) * esz, 2 * M * N * K, peak)
+        bnd = bound((M * K + K * N + M * N) * esz, 2 * M * N * K, peak)
         name = "matmul" if dt == torch.float32 else "matmul_bf16"
         out[name] = {
             "shape": f"{M}x{K}x{N} {str(dt)[6:]}",
             "ms": timed(lambda: matmul_op(a, bb)),
             "plain_ms": timed(lambda: matmul_ref(a, bb)),
             "library_ms": timed(lambda: torch.matmul(a, bb)),
-            "bound_ms": b, "bound_by": by}
+            **bnd}
 
     # sobel 4096^2 fp32
     H2 = W2 = 4096
@@ -1009,24 +1305,141 @@ def time_new_kernels(device):
     def conv_hypot():
         gxy = F.conv2d(img[None, None], filt, padding=1)[0]
         return torch.hypot(gxy[0], gxy[1])
-    b, by = bound(2 * H2 * W2 * 4, 17 * H2 * W2, FP32_FLOPS)
+    bnd = bound(2 * H2 * W2 * 4, 17 * H2 * W2, FP32_FLOPS)
     out["sobel"] = {
         "shape": f"{H2}x{W2} float32",
         "ms": timed(lambda: sobel_op(img)),
         "plain_ms": timed(lambda: sobel_ref(img)),
         "library_ms": timed(conv_hypot),
-        "bound_ms": b, "bound_by": by}
+        **bnd}
 
     # vecadd 2^26 fp32
     n = 1 << 26
     x, y = rn(n), rn(n)
-    b, by = bound(3 * n * 4, n, FP32_FLOPS)
+    bnd = bound(3 * n * 4, n, FP32_FLOPS)
     out["vecadd"] = {
         "shape": f"n={n} float32",
         "ms": timed(lambda: vecadd_op(x, y)),
         "plain_ms": timed(lambda: vecadd_ref(x, y)),
         "library_ms": timed(lambda: torch.add(x, y)),
-        "bound_ms": b, "bound_by": by}
+        **bnd}
+    return out
+
+
+def time_recurrent_kernels(device):
+    """Times of the recurrent kernels at the serving shapes (the JSON
+    rows) and at B=4, S=4096 (printed; their plain versions loop over
+    4096 tokens, so two calls are timed), the no-new-token paged decode
+    at the fused row's shapes, and flash / fused decode at
+    recurrentgemma's hd=256, Hq/Hkv 10/1, window 2048 (printed)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_op, fused_decode_step_op)
+    from repro_torch.kernels.decode_attention.ref import (
+        fused_paged_decode_ref, paged_decode_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv_op
+    from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
+    out = {}
+    for name, (B, S, D) in (("rglru_scan", (1, 130, 2560)),
+                            ("rglru_scan@B4S4096", (4, 4096, 2560))):
+        a, b, h0 = rglru_inputs(B, S, D, device, seed=1)
+        n = B * S * D
+        bnd = bound((2 * n + B * D) * 4 + n * 4, 2 * n, FP32_FLOPS)
+        big = S > 1000
+        out[name] = {
+            "shape": f"B={B} S={S} D={D} fp32",
+            "ms": timed(lambda: rglru_scan_op(a, b, h0)),
+            "plain_ms": timed(lambda: rglru_scan_ref(a, b, h0),
+                              *((2, 1) if big else ())),
+            "library_ms": None, **bnd}
+    for name, (B, H, S, K) in (("rwkv6_wkv", (1, 64, 130, 64)),
+                               ("rwkv6_wkv@B4S4096", (4, 64, 4096, 64))):
+        ins = wkv_inputs(B, H, S, K, device, seed=2)
+        n, st = B * H * S * K, B * H * K * K
+        bnd = bound((4 * n + H * K + st) * 4 + (n + st) * 4,
+                    4 * B * H * S * K * K, FP32_FLOPS)
+        big = S > 1000
+        out[name] = {
+            "shape": f"B={B} H={H} S={S} K={K} fp32",
+            "ms": timed(lambda: rwkv6_wkv_op(*ins)),
+            "plain_ms": timed(lambda: rwkv6_wkv_ref(*ins),
+                              *((2, 1) if big else ())),
+            "library_ms": None, **bnd}
+
+    def gather_sdpa(d, with_new):
+        Bq, _, Hq, hd = d["q"].shape
+        Hkv = d["k_pages"].shape[2]
+        S_tab = d["block_tables"].shape[1] * d["k_pages"].shape[1]
+        bt = d["block_tables"].long()
+        kk = d["k_pages"][bt].reshape(Bq, S_tab, Hkv, hd)
+        vv = d["v_pages"][bt].reshape(Bq, S_tab, Hkv, hd)
+        tok = torch.arange(S_tab, device=device)[None]
+        if with_new:
+            at = (tok == d["lengths"][:, None] - 1)[:, :, None, None]
+            kk = torch.where(at, d["k_new"], kk)
+            vv = torch.where(at, d["v_new"], vv)
+        valid = (tok < d["lengths"][:, None])[:, None, None, :]
+        G = Hq // Hkv
+        kk = kk.transpose(1, 2).repeat_interleave(G, dim=1)
+        vv = vv.transpose(1, 2).repeat_interleave(G, dim=1)
+        return F.scaled_dot_product_attention(d["q"].transpose(1, 2), kk, vv,
+                                              attn_mask=valid)
+
+    def decode_bound(d, with_new):
+        Bq, _, Hq, hd = d["q"].shape
+        Hkv, ps = d["k_pages"].shape[2], d["k_pages"].shape[1]
+        lens = d["lengths"].tolist()
+        rows = sum(L - 1 if with_new else L for L in lens)
+        pages = sum(-(-L // ps) for L in lens)
+        nbytes = (2 * rows * Hkv * hd * 2                   # pool K, V rows
+                  + 2 * Bq * Hq * hd * 2                    # q, out
+                  + (2 * Bq * Hkv * hd * 2 if with_new else 0)  # k/v_new
+                  + 4 * Bq + 4 * pages)                     # lengths, table
+        return bound(nbytes, sum(lens) * Hq * 4 * hd, BF16_FLOPS)
+
+    lens = [64, 161, 96, 143]
+    d = decode_inputs(lens, 16, 16, torch.bfloat16, device, seed=4)
+    for kk in ("k_new", "v_new"):
+        d.pop(kk)
+    bnd = decode_bound(d, False)
+    out["paged_decode_attention"] = {
+        "shape": f"B=4 Hq=Hkv=16 hd=64 ps=16 nb=16 lens={lens} bf16",
+        "ms": timed(lambda: decode_attention_op(
+            d["q"], d["k_pages"], d["v_pages"], d["lengths"],
+            block_tables=d["block_tables"])),
+        "plain_ms": timed(lambda: paged_decode_attention_ref(**d)),
+        "library_ms": timed(lambda: gather_sdpa(d, False)),
+        **bnd}
+
+    S, Hq, hd = 130, 10, 256
+    q, k, v = flash_inputs(S, Hq, 1, torch.bfloat16, device, seed=3, hd=hd)
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).expand(1, Hq, S, hd)
+    vt = v.transpose(1, 2).expand(1, Hq, S, hd)
+    pairs = S * (S + 1) // 2
+    bnd = bound((2 * S * Hq * hd + 2 * S * hd) * 2, Hq * pairs * 4 * hd,
+                BF16_FLOPS)
+    out["flash_attention_hd256"] = {
+        "shape": f"B=1 S={S} Hq={Hq} Hkv=1 hd={hd} window=2048 bf16",
+        "ms": timed(lambda: flash_attention_op(q, k, v, window=2048)),
+        "plain_ms": timed(lambda: flash_attention_ref(q, k, v, window=2048)),
+        "library_ms": timed(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        **bnd}
+    d = decode_inputs(lens, Hq, 1, torch.bfloat16, device, seed=5, hd=hd)
+    bnd = decode_bound(d, True)
+    out["fused_paged_decode_hd256"] = {
+        "shape": f"B=4 Hq={Hq} Hkv=1 hd={hd} ps=16 nb=16 lens={lens} "
+                 "window=2048 bf16",
+        "ms": timed(lambda: fused_decode_step_op(**d, window=2048)),
+        "plain_ms": timed(lambda: fused_paged_decode_ref(**d, window=2048)),
+        "library_ms": timed(lambda: gather_sdpa(d, True)),
+        **bnd}
     return out
 
 
@@ -1049,6 +1462,10 @@ def main():
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def phase_done(name):
+        log(f"[phase] {name} done at {time.perf_counter() - t_start:.1f}s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1065,6 +1482,7 @@ def main():
 
     errs = {}
     check_kernels(device, errs)
+    phase_done("kernels")
 
     cfg = get_config("qwen1.5-0.5b")
     model = Model(cfg, device)
@@ -1085,11 +1503,17 @@ def main():
                                        requests, native[mode], launches)
     del params, model
     torch.cuda.empty_cache()
+    phase_done("serve qwen")
+    modes.update(recurrent_serve_phases(device, launches))
+    phase_done("serve recurrent")
 
     vmm_programs_phase(device, launches)
     reference_phase(device)
+    recurrent_reference_phase(device)
     program_reference_phase(device)
+    phase_done("VMM programs and references")
     apps_phase(device, launches)
+    phase_done("apps")
 
     if "--profile" in sys.argv[1:]:
         model = Model(cfg, device)
@@ -1099,8 +1523,21 @@ def main():
             profile_phase(mode, cfg, model, params, requests)
         del params, model
         torch.cuda.empty_cache()
+        for arch, short, _ in RECURRENT_ARCHS:
+            rcfg = get_config(arch)
+            model = Model(rcfg, device)
+            params = model.compute_params(
+                model.init(torch.Generator(device=device).manual_seed(0)))
+            for mode in ("monolithic", "chunked"):
+                profile_phase(mode, rcfg, model, params,
+                              make_requests(rcfg.vocab),
+                              name=f"{short}-{mode}",
+                              engine_kw={"state_paging": True})
+            del params, model
+            torch.cuda.empty_cache()
 
     times = time_kernels(device)
+    phase_done("times")
     for mode, r in modes.items():
         log(f"[time:{mode}] ttft p50 {r['ttft_p50_ms']:.2f} ms, p95 "
             f"{r['ttft_p95_ms']:.2f} ms (queue wait p50 "

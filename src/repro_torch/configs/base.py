@@ -10,7 +10,8 @@ serialization helpers used by the checkpointing manifest.
 
 This is the PyTorch package's own copy of ``repro.configs.base``: the
 same fields and values, minus ``use_pallas``. Only the architectures the
-port serves are registered (``qwen1_5_0_5b``).
+port serves are registered (``qwen1_5_0_5b``, ``recurrentgemma_2b``,
+``rwkv6_7b``).
 """
 from __future__ import annotations
 
@@ -317,4 +318,5 @@ def list_archs():
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from repro_torch.configs import qwen1_5_0_5b  # noqa: F401  (registers)
+    from repro_torch.configs import (  # noqa: F401  (each registers itself)
+        qwen1_5_0_5b, recurrentgemma_2b, rwkv6_7b)

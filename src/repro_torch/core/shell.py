@@ -94,10 +94,18 @@ class TransferEngine:
             self._staging_bytes = n
         return self._staging
 
-    def h2d(self, guest_array: np.ndarray, device=None) -> torch.Tensor:
-        """Guest buffer → device tensor (``device`` None → the CPU)."""
-        device = torch.device(device if device is not None else "cpu")
+    def h2d(self, guest_array: np.ndarray, device=None,
+            dtype: torch.dtype = None) -> torch.Tensor:
+        """Guest buffer → device tensor. ``device`` None means the card
+        (raises when there is none), as for ``jax.device_put`` with no
+        target; CPU callers pass ``device="cpu"``. ``dtype=torch.bfloat16``
+        takes ``guest_array`` as the int16 bits :meth:`d2h` gives for a
+        bf16 tensor and views the result back as bf16."""
+        device = _resolve_device(device)
         guest_array = np.ascontiguousarray(guest_array)
+        if dtype == torch.bfloat16 and guest_array.dtype != np.int16:
+            raise ValueError("a bf16 tensor crosses as int16 bits, got "
+                             f"{guest_array.dtype}")
         nbytes = guest_array.nbytes
         if self.mode == "vm_copy":
             # the staging buffer is shared: hold its lock from the copy
@@ -123,13 +131,19 @@ class TransferEngine:
                 torch.cuda.current_stream(device).synchronize()
             t2 = time.perf_counter_ns()
             self._account_h2d(nbytes, 0, t2 - t1)
-        return out
+        return out.view(dtype) if dtype == torch.bfloat16 else out
 
     def d2h(self, device_array: torch.Tensor) -> np.ndarray:
+        """Device tensor → host array. numpy has no bfloat16, so a bf16
+        tensor crosses as its int16 bits (``h2d(..., dtype=torch.bfloat16)``
+        views them back)."""
         t0 = time.perf_counter_ns()
         if device_array.device.type == "cuda":
             torch.cuda.current_stream(device_array.device).synchronize()
-        out = device_array.detach().cpu().numpy()
+        t = device_array.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        out = t.cpu().numpy()
         dt = time.perf_counter_ns() - t0
         with self._stats_lock:
             self.stats.d2h_ns += dt
@@ -138,6 +152,18 @@ class TransferEngine:
             self.obs.count("dma_d2h_bytes_total", out.nbytes)
             self.obs.observe("dma_d2h_s", dt / 1e9)
         return out
+
+
+def _resolve_device(device=None) -> torch.device:
+    """``None`` means the card: raise when there is none rather than run
+    on the CPU unasked (the same rule as ``models.resolve_device``; core
+    does not import models)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to "
+                               "transfer to the CPU")
+        device = "cuda"
+    return torch.device(device)
 
 
 def _torch_dtype(dt: np.dtype) -> torch.dtype:

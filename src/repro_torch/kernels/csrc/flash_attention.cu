@@ -11,12 +11,14 @@
 // the kernel is bound by latency and occupancy, not by either roofline;
 // at long S it is bound by operations (S^2 * hd per head).
 //
-// Design: one CTA per (64-row q tile, q head, batch row); four threads
-// per q row, each owning hd/4 interleaved dims of the q row and of the
-// fp32 accumulator in registers, partial dot products combined with two
-// xor-shuffles. K/V tiles of 32 keys are staged in shared memory as fp32
-// and read by every row of the tile (broadcast, conflict-free since the
-// four threads of a row read consecutive words). Tiles wholly above the
+// Design: one CTA per (q tile, q head, batch row) of 256 threads; TPR
+// threads per q row (4, or 8 at hd=256), each owning hd/TPR interleaved
+// dims of the q row and of the fp32 accumulator in registers, partial
+// dot products combined with xor-shuffles. K/V tiles of BN keys (32, or
+// 16 at hd=256 so the two fp32 tiles stay at 32 KB, under the 48 KB of
+// static shared memory) are staged in shared memory as fp32 and read by
+// every row of the tile (broadcast, conflict-free since the threads of a
+// row read consecutive words). At hd=256 a CTA holds 32 q rows. Tiles wholly above the
 // causal diagonal or wholly outside the window are never visited (the
 // TPU grid visits and masks them); the ragged Sq/Sk edge is masked in
 // the kernel instead of padded. Scalar FMAs, no tensor cores: wgmma/TMA
@@ -25,16 +27,23 @@
 
 namespace {
 
-constexpr int BM = 64;          // q rows per CTA
-constexpr int BN = 32;          // keys per shared-memory tile
-constexpr int TPR = 4;          // threads per q row
-constexpr int NT = BM * TPR;    // threads per CTA
+constexpr int NT = 256;         // threads per CTA
+
+// tile shape per head dim: threads per q row, q rows and keys per tile
+template <int HD> struct Tile {
+  static constexpr int TPR = HD >= 256 ? 8 : 4;
+  static constexpr int BM = NT / TPR;
+  static constexpr int BN = HD >= 256 ? 16 : 32;
+};
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int Hq,
     int Hkv, int causal, int window, float scale) {
+  constexpr int TPR = Tile<HD>::TPR;
+  constexpr int BM = Tile<HD>::BM;
+  constexpr int BN = Tile<HD>::BN;
   constexpr int DPT = HD / TPR;
   __shared__ float ks[BN][HD];
   __shared__ float vs[BN][HD];
@@ -86,8 +95,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < DPT; ++i) part += qr[i] * ks[j][sub + TPR * i];
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, off);
       const int key = n0 + j;
       const bool ok = key < Sk && (!causal || key <= qi) &&
                       (window <= 0 || qi - key < window);
@@ -128,22 +138,24 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int Hq, int Hkv, int hd, int causal, int window,
            float scale, cudaStream_t st) {
-  const dim3 grid((Sq + BM - 1) / BM, Hq, B);
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
   T* oo = static_cast<T*>(o);
 #define RT_FA_CASE(HD_)                                                     \
-  case HD_:                                                                 \
+  case HD_: {                                                               \
+    const dim3 grid((Sq + Tile<HD_>::BM - 1) / Tile<HD_>::BM, Hq, B);       \
     flash_fwd_kernel<T, HD_><<<grid, NT, 0, st>>>(qq, kk, vv, oo, Sq, Sk,   \
                                                   Hq, Hkv, causal, window,  \
                                                   scale);                   \
-    break;
+    break;                                                                  \
+  }
   switch (hd) {
     RT_FA_CASE(16)
     RT_FA_CASE(32)
     RT_FA_CASE(64)
     RT_FA_CASE(128)
+    RT_FA_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }

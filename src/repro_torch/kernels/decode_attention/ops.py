@@ -1,7 +1,9 @@
-"""Wrappers of the ring-cache decode kernel, the fused paged decode
-kernel and the sampler, with the call contracts of
-``repro.kernels.decode_attention.ops`` (``decode_attention_op`` for a
-contiguous cache, ``fused_decode_step_op``, ``sample_tokens_op``).
+"""Wrappers of the ring-cache decode kernel, the paged decode kernels
+(with and without the step's new token) and the sampler, with the call
+contracts of ``repro.kernels.decode_attention.ops``
+(``decode_attention_op`` for a contiguous cache or, given
+``block_tables``, a page pool; ``fused_decode_step_op``;
+``sample_tokens_op``).
 
 A CUDA tensor launches ``csrc/decode_attention.cu`` /
 ``csrc/fused_paged_decode.cu`` / ``csrc/sample_tokens.cu`` on the
@@ -9,22 +11,34 @@ current stream; a CPU tensor runs the plain version in ``ref.py``."""
 import torch
 
 from repro_torch.kernels import common
-from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
-                                                      fused_paged_decode_ref,
-                                                      sample_tokens_ref)
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, fused_paged_decode_ref, paged_decode_attention_ref,
+    sample_tokens_ref)
 
 RING = "decode_attention"
 DECODE = "fused_paged_decode"
+PAGED = "paged_decode_attention"
 SAMPLE = "sample_tokens"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)          # paged kernels
+RING_HEAD_DIMS = (16, 32, 64, 128)
 RING_GROUPS = (1, 2, 4, 8)
 
 
-def decode_attention_op(q, k_cache, v_cache, pos, *, window=0):
-    """q: (B,1,Hq,hd); k/v: (B,C,Hkv,hd) contiguous ring caches (position
-    p at slot p % C); ``pos``: the new token's position, shared by every
-    slot — a Python int, or a 0-d int32 tensor on the caches' device that
-    the kernel reads itself (no host sync) → (B,1,Hq,hd)."""
+def decode_attention_op(q, k_cache, v_cache, pos, *, window=0,
+                        block_tables=None):
+    """q: (B,1,Hq,hd) → (B,1,Hq,hd).
+
+    Contiguous: k/v (B,C,Hkv,hd) ring caches (position p at slot p % C);
+    ``pos``: the new token's position, shared by every slot — a Python
+    int, or a 0-d int32 tensor on the caches' device that the kernel
+    reads itself (no host sync).
+
+    Paged (``block_tables`` (B, nb) int32 given): k/v (P,ps,Hkv,hd) page
+    pools; ``pos`` the (B,) int32 per-slot valid lengths (0 = dead slot
+    → zeros), every valid token already in the pool."""
+    if block_tables is not None:
+        return _paged_decode_op(q, k_cache, v_cache, pos, block_tables,
+                                window)
     require = common.require
     B, one, Hq, hd = q.shape
     require(k_cache.dim() == 4 and k_cache.shape == v_cache.shape
@@ -40,7 +54,8 @@ def decode_attention_op(q, k_cache, v_cache, pos, *, window=0):
     if cpu:
         return decode_attention_ref(q, k_cache, v_cache, pos, window=window)
     _, C, Hkv, _ = k_cache.shape
-    require(hd in HEAD_DIMS, f"kernel takes hd in {HEAD_DIMS}, got {hd}")
+    require(hd in RING_HEAD_DIMS,
+            f"kernel takes hd in {RING_HEAD_DIMS}, got {hd}")
     require(Hq // Hkv in RING_GROUPS,
             f"kernel takes Hq/Hkv in {RING_GROUPS}, got {Hq // Hkv}")
     common.check_contiguous(q=q, k_cache=k_cache, v_cache=v_cache)
@@ -59,6 +74,38 @@ def decode_attention_op(q, k_cache, v_cache, pos, *, window=0):
               Hq, Hkv, hd, int(window), hd ** -0.5, common.stream_of(q))
     common.check(code, "decode_attention")
     common.LAUNCHES[RING] += 1
+    return out
+
+
+def _paged_decode_op(q, k_pages, v_pages, lengths, block_tables, window):
+    require = common.require
+    B, one, Hq, hd = q.shape
+    P, ps, Hkv, hd_p = k_pages.shape
+    require(one == 1 and hd_p == hd and Hq % Hkv == 0,
+            f"q{tuple(q.shape)} does not match pools{tuple(k_pages.shape)}")
+    require(v_pages.shape == k_pages.shape, "k/v pools differ in shape")
+    require(lengths.shape == (B,) and block_tables.dim() == 2
+            and block_tables.shape[0] == B, "bad lengths/block_tables")
+    require(q.dtype == k_pages.dtype == v_pages.dtype,
+            "q/pool dtypes differ")
+    if common.on_cpu(q, k_pages, v_pages, lengths, block_tables):
+        return paged_decode_attention_ref(q, k_pages, v_pages, lengths,
+                                          block_tables, window=window)
+    require(hd in HEAD_DIMS, f"kernel takes hd in {HEAD_DIMS}, got {hd}")
+    require(lengths.dtype == torch.int32
+            and block_tables.dtype == torch.int32,
+            "lengths and block_tables must be int32")
+    common.check_contiguous(q=q, k_pages=k_pages, v_pages=v_pages,
+                            lengths=lengths, block_tables=block_tables)
+    out = torch.empty_like(q)
+    fn = common.entry(DECODE, "paged_decode_attention", "ppppppiiiiiiiifp")
+    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+              lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
+              common.dtype_code(q), B, Hq, Hkv, hd, ps,
+              block_tables.shape[1], int(window), hd ** -0.5,
+              common.stream_of(q))
+    common.check(code, "paged_decode_attention")
+    common.LAUNCHES[PAGED] += 1
     return out
 
 

@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the ring-cache decode attention, the fused
-paged decode attention and the on-device sampler, in the call layout of
-their ops. The CPU path of the
+"""Plain PyTorch versions of the ring-cache decode attention, the paged
+decode attention (with and without the step's new token) and the
+on-device sampler, in the call layout of their ops. The CPU path of the
 wrappers in ``ops.py`` and the yardsticks the CUDA kernels are held
 against on the card."""
 import torch
@@ -78,6 +78,38 @@ def fused_paged_decode_ref(q, k_new, v_new, k_pages, v_pages, lengths,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = torch.where(m, p, torch.zeros_like(p))
     p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhs,bshd->bhd", p, vr)
+    return o[:, None].to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, lengths, block_tables,
+                               *, window=0):
+    """q (B,1,Hq,hd); pools (P,ps,Hkv,hd) holding every valid token;
+    lengths (B,) valid-token counts (0 = dead slot → zeros);
+    block_tables (B,nb) → (B,1,Hq,hd). Masked rows are zeroed before any
+    product, as in :func:`fused_paged_decode_ref`."""
+    B, _, Hq, hd = q.shape
+    _, ps, Hkv, _ = k_pages.shape
+    G = Hq // Hkv
+    S = block_tables.shape[1] * ps
+    idx = block_tables.long()
+    k = k_pages[idx].reshape(B, S, Hkv, hd)
+    v = v_pages[idx].reshape(B, S, Hkv, hd)
+    lens = lengths.long()[:, None]
+    tok = torch.arange(S, device=q.device)[None]
+    valid = tok < lens
+    if window > 0:
+        valid &= tok >= lens - window
+    rows = valid[:, :, None, None]
+    k = torch.where(rows, k, torch.zeros_like(k)).float()
+    v = torch.where(rows, v, torch.zeros_like(v)).float()
+    kr = k.repeat_interleave(G, dim=2)
+    vr = v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bhd,bshd->bhs", q[:, 0].float(), kr) * hd ** -0.5
+    m = valid[:, None, :]
+    s = torch.where(m, s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(m, p, torch.zeros_like(p))
     o = torch.einsum("bhs,bshd->bhd", p, vr)
     return o[:, None].to(q.dtype)
 

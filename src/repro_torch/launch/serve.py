@@ -4,6 +4,9 @@ KV cache, on the card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
         --requests 8 --max-new 16
     ... --chunk-tokens 32   # chunked prefill + fused decode/sampling
+    ... --arch recurrentgemma-2b | rwkv6-7b
+                            # the recurrent families; their per-slot
+                            # state rows lease pages from the MMU too
     ... --device cpu        # plain PyTorch versions of the kernels
     ... --virtualized --policy {fev,bev,hybrid,wfq,slo} [--slo-ms 50]
                             # every step through a VMM tenant's data plane
@@ -73,7 +76,7 @@ def main(argv=None):
     params = model.compute_params(model.init(gen))
     vmm = None
     kw = dict(page_size=args.page_size, obs=obs, obs_tenant="server",
-              chunk_tokens=args.chunk_tokens)
+              chunk_tokens=args.chunk_tokens, state_paging=True)
     if args.virtualized:
         vmm, tenant = virtual_server(device, args.policy, args.slo_ms, obs)
         kw.update(virtualized_engine_kw(tenant))
@@ -106,7 +109,8 @@ def main(argv=None):
           f"prefills (full={s.full_prefills}, "
           f"chunks={s.prefill_chunks}), {s.page_faults} page "
           f"faults, {s.pages_leased} pages leased / {s.pages_freed} freed, "
-          f"{s.deferred} deferred")
+          f"{s.state_pages_leased} state pages leased / "
+          f"{s.state_pages_freed} freed, {s.deferred} deferred")
     print(f"[serve] kv memory: {engine.kv.memory_stats()}")
     if args.metrics:
         for name, ts in obs.tracer.snapshot()["tenants"].items():

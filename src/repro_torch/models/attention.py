@@ -1,10 +1,10 @@
-"""Attention, dense subset — the PyTorch counterparts of
-``repro.models.attention``: QKV projection with bias, the direct
-(one masked score tensor) attention core, full-sequence self-attention
-through the flash op (with ring caches of any capacity), one-token
-decode against a ring cache through the ring decode op, paged decode
-through the fused op, and chunked prefill against leased pages in plain
-PyTorch.
+"""Attention — the PyTorch counterparts of ``repro.models.attention``:
+QKV projection with bias, the direct (one masked score tensor) attention
+core, full-sequence self-attention through the flash op (with ring
+caches of any capacity), one-token decode against a ring cache through
+the ring decode op, paged decode through the fused op, and chunked
+prefill against leased pages in plain PyTorch. Every path that a
+sliding-window (``swa``) layer runs takes its ``window``.
 
 GQA is computed in grouped form where a kernel does it (head
 arithmetic, no repeated K/V) and with ``repeat_kv`` in the plain core,
@@ -70,16 +70,21 @@ def repeat_kv(k, n_rep):
     return k if n_rep == 1 else k.repeat_interleave(n_rep, dim=2)
 
 
-def attention_core(q, k, v, *, q_pos, k_pos):
-    """Causal attention by absolute positions: q (B,Sq,Hq,hd); k/v
-    (B,Sk,Hkv,hd) → (B,Sq,Hq,hd). One dense masked score tensor for
-    every Sk in this slice (the reference's ``_direct``); its chunked
-    and banded paths for Sk > 2048 are not ported yet."""
+def attention_core(q, k, v, *, q_pos, k_pos, window=0):
+    """Causal attention by absolute positions, with a sliding window when
+    ``window > 0`` (``(q_pos - k_pos) < window``, the reference's
+    ``_mask_bias``): q (B,Sq,Hq,hd); k/v (B,Sk,Hkv,hd) → (B,Sq,Hq,hd).
+    One dense masked score tensor for every Sk in this slice (the
+    reference's ``_direct``; its ``_banded_swa`` computes the same
+    function); its chunked and banded memory-saving paths for
+    Sk > 2048 are not ported yet."""
     Hq, hd = q.shape[2], q.shape[3]
     k = repeat_kv(k, Hq // k.shape[2])
     v = repeat_kv(v, Hq // v.shape[2])
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / math.sqrt(hd))
     ok = q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        ok &= (q_pos[:, None] - k_pos[None, :]) < window
     s = s + torch.where(ok, 0.0, _NEG)
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", pr.to(v.dtype), v)
@@ -91,8 +96,9 @@ def attention_core(q, k, v, *, q_pos, k_pos):
 # ---------------------------------------------------------------------------
 
 
-def attn_full(cfg, p, x, positions, cache_capacity=0):
-    """Causal self-attention over a full sequence through the flash op.
+def attn_full(cfg, p, x, positions, cache_capacity=0, window=0):
+    """Causal (sliding-window when ``window > 0``) self-attention over a
+    full sequence through the flash op.
     Returns (y, {"k","v"}) with the roped K/V in compute dtype. With no
     ``cache_capacity`` (or C == S) the cache is (B,S,Hkv,hd) — what the
     engine scatters into its pages; with C > S it is padded with zeros to
@@ -104,7 +110,7 @@ def attn_full(cfg, p, x, positions, cache_capacity=0):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     y = flash_attention_op(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=True)
+                           causal=True, window=window)
     C = cache_capacity or S
     if C >= S:
         pad = (0, 0, 0, 0, 0, C - S)
@@ -153,7 +159,8 @@ def attn_decode(cfg, p, x1, cache, pos, pvec):
 # ---------------------------------------------------------------------------
 
 
-def attn_decode_paged(cfg, p, x1, pools, positions, block_tables, live):
+def attn_decode_paged(cfg, p, x1, pools, positions, block_tables, live,
+                      window=0):
     """Paged decode: one token per slot against shared page pools.
 
     x1 (B,1,D); pools {"k","v"} (P, ps, Hkv, hd) — **updated in place**:
@@ -165,8 +172,8 @@ def attn_decode_paged(cfg, p, x1, pools, positions, block_tables, live):
     ``lengths-1``. ``live`` holds the indices of the slots with
     ``positions >= 0``; only those rows are written — an explicit
     mask instead of the reference's out-of-range sentinel page with
-    ``mode="drop"``, which torch indexing would reject. Returns y
-    (B,1,D)."""
+    ``mode="drop"``, which torch indexing would reject. A sliding window
+    keeps tokens ``t >= length - window``. Returns y (B,1,D)."""
     ps = pools["k"].shape[1]
     q, k, v = _project_qkv(cfg, p, x1)
     pos_c = positions.clamp_min(0)
@@ -174,7 +181,8 @@ def attn_decode_paged(cfg, p, x1, pools, positions, block_tables, live):
     k = apply_rope(k, pos_c[:, None], cfg.rope_theta)
     lengths = (positions + 1).clamp_min(0).to(torch.int32)
     o = fused_decode_step_op(q.contiguous(), k.contiguous(), v.contiguous(),
-                             pools["k"], pools["v"], lengths, block_tables)
+                             pools["k"], pools["v"], lengths, block_tables,
+                             window=window)
     nb = block_tables.shape[1]
     blk = (pos_c // ps).clamp(0, nb - 1).long()
     page = block_tables.gather(1, blk[:, None])[:, 0]
@@ -184,13 +192,15 @@ def attn_decode_paged(cfg, p, x1, pools, positions, block_tables, live):
     return _out_proj(cfg, p, o)
 
 
-def attn_prefill_chunk_paged(cfg, p, x, pools, positions, block_row):
+def attn_prefill_chunk_paged(cfg, p, x, pools, positions, block_row,
+                             window=0):
     """One slot's prompt chunk against its leased pages (plain PyTorch:
     the reference has no kernel here). x (1, L, D); positions (L,)
     absolute token indices; block_row (nb,) the slot's block table.
     The chunk's K/V are written into the pools **in place**, then the
-    chunk attends causally over the slot's gathered pages; stale rows
-    past the chunk are masked by causality. Returns y (1, L, D)."""
+    chunk attends causally (within ``window`` when it is > 0) over the
+    slot's gathered pages; stale rows past the chunk are masked by
+    causality. Returns y (1, L, D)."""
     _, ps, Hkv, hd = pools["k"].shape
     q, k, v = _project_qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -203,5 +213,5 @@ def attn_prefill_chunk_paged(cfg, p, x, pools, positions, block_row):
     kb = pools["k"][block_row.long()].reshape(1, S, Hkv, hd)
     vb = pools["v"][block_row.long()].reshape(1, S, Hkv, hd)
     y = attention_core(q, kb, vb, q_pos=positions,
-                       k_pos=torch.arange(S, device=x.device))
+                       k_pos=torch.arange(S, device=x.device), window=window)
     return _out_proj(cfg, p, y)

@@ -1,5 +1,6 @@
-"""Shared model layers: norms, rotary positions, the swiglu FFN, inits and
-dtype helpers — the PyTorch counterparts of ``repro.models.layers``.
+"""Shared model layers: norms, rotary and sinusoidal positions, the swiglu
+FFN, inits and dtype helpers — the PyTorch counterparts of
+``repro.models.layers``.
 
 Conventions (as in the reference)
 ---------------------------------
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -41,8 +43,12 @@ def embed_init(gen, vocab, d, dtype, device):
 
 
 def init_norm(cfg, device):
-    return {"scale": torch.ones((cfg.d_model,), dtype=dt(cfg.param_dtype),
-                                device=device)}
+    p = {"scale": torch.ones((cfg.d_model,), dtype=dt(cfg.param_dtype),
+                             device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=dt(cfg.param_dtype),
+                                device=device)
+    return p
 
 
 def init_ffn(cfg, gen, device):
@@ -58,13 +64,20 @@ def init_ffn(cfg, gen, device):
 
 
 def apply_norm(cfg, p, x):
-    """rmsnorm in fp32, cast back to ``x``'s dtype (layers.py:59-71)."""
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
+    """rmsnorm or layernorm (with its bias) in fp32, cast back to ``x``'s
+    dtype (layers.py:59-71)."""
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + cfg.norm_eps)
-    return (y * p["scale"].float()).to(x.dtype)
+    if cfg.norm == "rmsnorm":
+        var = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + cfg.norm_eps)
+    else:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+    y = y * p["scale"].float()
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -89,6 +102,34 @@ def apply_rope(x, positions, theta):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n_pos, d, offset=0):
+    """(n_pos, d) fp32 sinusoidal table, computed in numpy exactly as the
+    reference computes it."""
+    pos = np.arange(offset, offset + n_pos, dtype=np.float32)
+    half = d // 2
+    freqs = np.exp(-np.log(10000.0) * np.arange(half, dtype=np.float32)
+                   / half)
+    ang = pos[:, None] * freqs[None, :]
+    return torch.from_numpy(np.concatenate([np.sin(ang), np.cos(ang)],
+                                           axis=-1).astype(np.float32))
+
+
+def add_abs_positions(x):
+    """x (B, S, D) + the sinusoidal table of positions 0..S-1."""
+    table = sinusoidal_positions(x.shape[1], x.shape[2]).to(x.device)
+    return x + table[None].to(x.dtype)
+
+
+def abs_position_vector(pos, d):
+    """Sinusoidal embedding of a position tensor (…,) → (…, d) fp32."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=pos.device) / half)
+    ang = pos.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine over MMU-backed paged KV memory —
 the PyTorch port of ``repro.serving.engine`` (monolithic and chunked
-prefill).
+prefill; attention and recurrent families).
 
 Each batch slot owns a *position* and a *block table*:
 
@@ -16,7 +16,12 @@ Each batch slot owns a *position* and a *block table*:
   + on-device sampling, only (B,) token ids leave the device);
 * decode passes a per-slot ``(B,)`` positions vector (-1 marks a dead
   slot) plus the block tables; EOS recycling frees the slot's pages back
-  to the MMU the moment it finishes.
+  to the MMU the moment it finishes;
+* with ``state_paging=True`` a recurrent model's per-slot rows lease
+  their own pages from the same pool at admission
+  (:class:`~repro_torch.serving.paged_state.PagedRecurrentState`) and
+  free them at finish; in chunked mode a slot's rows are zeroed at
+  admission, since the first chunk reads them as its initial state.
 
 Host-side sampling (monolithic mode, and the first token after the last
 prefill chunk) uses a seeded numpy RNG, draw for draw as the reference
@@ -47,6 +52,7 @@ from repro_torch.obs import (NULL_HUB, PHASE_ADMITTED, PHASE_DECODE,
                              PHASE_DEFERRED, PHASE_PREFILL,
                              PHASE_PREFILL_CHUNK)
 from repro_torch.serving.paged_kv import PagedKVCache
+from repro_torch.serving.paged_state import PagedRecurrentState
 
 
 @dataclass
@@ -75,6 +81,13 @@ class EngineStats:
     pages_leased: int = 0
     pages_freed: int = 0
     page_faults: int = 0
+    # paged recurrent state (state_paging=True): per-slot rows' pages
+    state_pages_leased: int = 0
+    state_pages_freed: int = 0
+    # parked to host / refaulted back: stay 0 until the engine's swap
+    # tier (park/refault) is ported; swap=True raises until then
+    state_swap_outs: int = 0
+    state_swap_ins: int = 0
 
 
 class ServeEngine:
@@ -87,10 +100,9 @@ class ServeEngine:
                  seed: int = 0, obs=None, obs_tenant: str = "serve",
                  chunk_tokens: int = 0, share_prefix: bool = False,
                  swap: bool = False, state_paging: bool = False):
-        if state_paging or extra_batch:
+        if extra_batch:
             raise NotImplementedError(
-                "serving: paged recurrent state and vlm/enc-dec frontends "
-                "are not ported yet")
+                "serving: vlm/enc-dec frontends are not ported yet")
         self.cfg = cfg
         self.model = model
         self.device = model.device
@@ -122,10 +134,28 @@ class ServeEngine:
         # per-slot decode state: positions (-1 = dead) + MMU-leased pages
         self.slots: List[Optional[Request]] = [None] * batch_size
         self.positions = np.full(batch_size, -1, np.int32)
+        # when the engine sizes its pool AND pages recurrent state, size
+        # it for the state rows too (the KV working set alone would leave
+        # recurrent-family admissions dead on arrival)
+        row_bytes = model.state_row_bytes()
+        extra_pages = 0
+        if state_paging and pool is None and row_bytes > 0:
+            pb = model.kv_page_bytes(page_size)
+            extra_pages = batch_size * max(1, -(-row_bytes // pb))
         self.kv = PagedKVCache(cfg, model, batch_size, capacity,
                                page_size=page_size, pool=pool,
                                obs=self.obs, share_prefix=share_prefix,
-                               swap=swap)
+                               swap=swap, extra_pages=extra_pages)
+        # paged recurrent state: per-slot rows leased from the KV pool;
+        # a no-op (None) for attention-only models
+        self.rstate = None
+        if state_paging and row_bytes > 0:
+            self.rstate = PagedRecurrentState(cfg, model, batch_size,
+                                              pool=self.kv.pool,
+                                              obs=self.obs)
+        # chunked prefill reads a slot's rows as its initial chunk state:
+        # a recycled slot is zeroed at admission
+        self._reset_rows = self._chunked and row_bytes > 0
         self._logits: Optional[np.ndarray] = None    # (B, V*) host copy
         # chunked-prefill bookkeeping: cursor = prompt tokens written so
         # far (-1 = not prefilling); _next = sampled-but-unemitted token
@@ -200,12 +230,14 @@ class ServeEngine:
             lease_len = (min(plen, self.chunk_tokens) if self._chunked
                          else plen)
             owner = f"req{req.rid}"
+            n_pages = max(1, -(-lease_len // self.kv.page_size))
+            if self.rstate is not None:
+                n_pages += self.rstate.blocks_per_slot
             live = any(s is not None for s in self.slots)
             if self.admission_gate is not None:
                 note_callback("engine.admission_gate")
             if (self.admission_gate is not None and live
-                    and not self.admission_gate(
-                        owner, max(1, -(-lease_len // self.kv.page_size)))):
+                    and not self.admission_gate(owner, n_pages)):
                 # pool pressure: defer the newcomer before touching the
                 # MMU. Advisory only — with no live slot (nothing will
                 # ever free a page) the lease is tried, so exhaustion
@@ -221,6 +253,20 @@ class ServeEngine:
                 if all(s is None for s in self.slots):
                     raise         # nothing live will ever free a page
                 break
+            if self.rstate is not None:
+                # the slot's recurrent-state pages lease from the same
+                # pool, under the same deferral story
+                try:
+                    self.rstate.admit(i, owner)
+                except MMUError as exc:
+                    self.kv.release(i)     # its lease was not counted yet
+                    self._defer(req, type(exc).__name__)
+                    if all(s is None for s in self.slots):
+                        raise
+                    break
+                self.stats.state_pages_leased += self.rstate.blocks_per_slot
+            if self._reset_rows:
+                self.kv.state = self.model.reset_state_row(self.kv.state, i)
             if self.obs.enabled:
                 self.obs.tracer.event(self.obs_tenant, req.rid,
                                       PHASE_ADMITTED, slot=i,
@@ -266,6 +312,7 @@ class ServeEngine:
         req = self.slots[i]
         self.stats.pages_freed += self.kv.tables[i].n_pages
         self.kv.release(i)
+        self._release_state(i)
         self.slots[i] = None
         self.positions[i] = -1
         self._cursor[i] = -1
@@ -306,7 +353,7 @@ class ServeEngine:
             self.stats.pages_leased += grown
             logits, self.kv.state = self._chunk_fn(
                 params, self.kv.state,
-                self._dev(req.prompt[None, start:start + c]),
+                self._dev(req.prompt[None, start:start + c]), i,
                 self._dev(self.kv.block_tables()[i]), start)
             self._cursor[i] = start + c
             self.stats.prefill_chunks += 1
@@ -329,6 +376,14 @@ class ServeEngine:
                     self.obs.tracer.event(self.obs_tenant, req.rid,
                                           PHASE_PREFILL, tokens=plen)
 
+    def _release_state(self, i: int):
+        """Return slot ``i``'s recurrent-state pages (no-op without paged
+        state)."""
+        if self.rstate is None or self.rstate.tables[i] is None:
+            return
+        self.stats.state_pages_freed += self.rstate.tables[i].n_pages
+        self.rstate.release(i)
+
     # ------------------------------------------------------------------
     # Stepping
     # ------------------------------------------------------------------
@@ -340,6 +395,7 @@ class ServeEngine:
         self._cursor[i] = -1
         self.stats.pages_freed += self.kv.tables[i].n_pages
         self.kv.release(i)                        # pages back to the MMU
+        self._release_state(i)
         with self._lock:
             self.completed[r.rid] = r
             fut = self._futures.get(r.rid)

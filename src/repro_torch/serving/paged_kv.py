@@ -1,9 +1,11 @@
 """PagedKVCache — MMU-owned paged KV memory for the serving engine (the
 PyTorch port of ``repro.serving.paged_kv``, leasing subset).
 
-K/V live in shared physical page pools ``(L, num_pages, page_size, Hkv,
-hd)`` on the model's device, built by ``Model.init_paged_state``, and
-every serving slot *leases* its pages from a
+K/V live in shared physical page pools ``(La, num_pages, page_size, Hkv,
+hd)`` over the attention layers on the model's device, built by
+``Model.init_paged_state`` beside the per-slot recurrent rows (which
+:class:`~repro_torch.serving.paged_state.PagedRecurrentState` leases),
+and every serving slot *leases* its pages from a
 :class:`repro_torch.core.mmu.SegmentPool` page table (one page = one MMU
 segment):
 
@@ -20,7 +22,8 @@ host swap tier) is not ported yet: ``share_prefix=True`` and
 ``swap=True`` raise ``NotImplementedError``.
 
 Isolation is per request owner: each slot's table is leased, grown and
-freed under its own owner id and quota in the MMU.
+freed under its own owner id and quota in the MMU. An attention-free
+model has empty K/V pools but still leases pages, as the reference does.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ class PagedKVCache:
     def __init__(self, cfg, model, batch_size: int, capacity: int,
                  page_size: int = 16, pool: Optional[SegmentPool] = None,
                  obs=None, share_prefix: bool = False,
-                 swap: bool = False):
+                 swap: bool = False, extra_pages: int = 0):
         if share_prefix or swap:
             raise NotImplementedError(
                 "paged KV: prefix sharing and the swap tier are not "
@@ -52,7 +55,10 @@ class PagedKVCache:
         self.num_pages = batch_size * self.blocks_per_slot
         self.page_bytes = model.kv_page_bytes(page_size)
         if pool is None:
-            pool = SegmentPool(total_bytes=self.num_pages * self.page_bytes,
+            # extra_pages: headroom the engine asks for beyond the KV
+            # working set (paged recurrent-state rows share this pool)
+            pool = SegmentPool(total_bytes=(self.num_pages + extra_pages)
+                               * self.page_bytes,
                                backend="bitmap",
                                segment_bytes=self.page_bytes, obs=obs)
         # the pool may be oversubscribed (the engine defers/truncates on
@@ -67,7 +73,8 @@ class PagedKVCache:
         # not just this engine's own working set: with a shared pool,
         # frames ≥ num_pages are real
         self.frame_count = max(self.num_pages, pool.n_segments)
-        self.state = model.init_paged_state(self.frame_count, page_size)
+        self.state = model.init_paged_state(batch_size, self.frame_count,
+                                            page_size)
         self.tables: List[Optional[object]] = [None] * batch_size
         self.owners: List[Optional[str]] = [None] * batch_size
         # host-side block-table mirror, fixed width → stable decode shapes
@@ -122,10 +129,11 @@ class PagedKVCache:
     # Device state
     # ------------------------------------------------------------------
     def write_prefill(self, caches, slot: int, length: int):
-        """Scatter a batch=1 prefill cache into the slot's leased pages."""
+        """Scatter a batch=1 prefill cache into the slot's leased pages
+        and rows."""
         block_row = torch.from_numpy(self._bt[slot]).to(self.model.device)
         self.state = self.model.write_prefill_paged(
-            self.state, caches, block_row, length, self.page_size)
+            self.state, caches, slot, block_row, length, self.page_size)
 
     def block_tables(self) -> np.ndarray:
         """(B, blocks_per_slot) int32 — padded entries are 0 (any

@@ -107,6 +107,6 @@ def test_engine_future_resolves(models):
 def test_unported_options_raise(models):
     jcfg, cfg, jm, jp, m, p = models
     for kw in ({"share_prefix": True}, {"swap": True},
-               {"state_paging": True}, {"extra_batch": {"frames": 0}}):
+               {"extra_batch": {"frames": 0}}):
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, m, 2, 64, page_size=8, chunk_tokens=8, **kw)

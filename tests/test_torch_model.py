@@ -73,7 +73,7 @@ def _paged_pair(cd, cfg, jm, jp, m, p, lens):
     bt = np.random.default_rng(5).permutation(P)[:len(lens) * NB].reshape(
         len(lens), NB).astype(np.int32)
     js = jm.init_paged_state(len(lens), P, PS)
-    ts = m.init_paged_state(P, PS)
+    ts = m.init_paged_state(len(lens), P, PS)
     for b, L in enumerate(lens):
         if not L:
             continue
@@ -82,7 +82,8 @@ def _paged_pair(cd, cfg, jm, jp, m, p, lens):
         js = jm.write_prefill_paged(js, jc, jnp.int32(b), jnp.asarray(bt[b]),
                                     L, PS)
         _, tc = m.prefill(p, {"tokens": torch.from_numpy(toks).long()})
-        ts = m.write_prefill_paged(ts, tc, torch.from_numpy(bt[b]), L, PS)
+        ts = m.write_prefill_paged(ts, tc, b, torch.from_numpy(bt[b]), L,
+                                   PS)
     return bt, js, ts
 
 
@@ -118,14 +119,14 @@ def test_chunked_prefill_matches_one_shot(pair):
     block_row = np.asarray([2, 0, 3, 1], np.int32)
     prompt = _prompt(plen, 3, cfg.vocab)
     js = jm.init_paged_state(1, NB, PS)
-    ts = m.init_paged_state(NB, PS)
+    ts = m.init_paged_state(1, NB, PS)
     for start in range(0, plen, chunk):
         t = prompt[None, start:start + chunk]
         want, js = jm.prefill_chunk_paged(jp, js, jnp.asarray(t),
                                           jnp.int32(0),
                                           jnp.asarray(block_row),
                                           jnp.int32(start))
-        got, ts = m.prefill_chunk_paged(p, ts, torch.from_numpy(t).long(),
+        got, ts = m.prefill_chunk_paged(p, ts, torch.from_numpy(t).long(), 0,
                                         torch.from_numpy(block_row), start)
         _close(got[:, :cfg.vocab], np.asarray(want)[:, :cfg.vocab], TOL[cd])
     one, _ = m.prefill(p, {"tokens": torch.from_numpy(prompt[None]).long()})

@@ -550,7 +550,7 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
 def test_transfer_roundtrip(mode):
     te = TransferEngine(mode=mode)
     x = np.random.default_rng(1).standard_normal((64, 128), np.float32)
-    dev = te.h2d(x)
+    dev = te.h2d(x, device="cpu")
     np.testing.assert_array_equal(te.d2h(dev), x)
     assert te.stats.h2d_bytes == te.stats.d2h_bytes == x.nbytes
     if mode == "vm_copy":
@@ -563,10 +563,35 @@ def test_vm_copy_returns_no_view_of_staging():
     """On the CPU the staged copy must not alias the shared staging
     buffer: a second write would otherwise change the first's data."""
     te = TransferEngine(mode="vm_copy", staging_bytes=16)
-    a = te.h2d(np.arange(8, dtype=np.int32))
-    te.h2d(np.full(8, -1, np.int32))
+    a = te.h2d(np.arange(8, dtype=np.int32), device="cpu")
+    te.h2d(np.full(8, -1, np.int32), device="cpu")
     assert te._staging.nbytes >= 32
     np.testing.assert_array_equal(a.numpy(), np.arange(8))
+
+
+def test_h2d_without_device_targets_the_card(monkeypatch):
+    """``h2d`` with no device means the card, as ``jax.device_put`` with
+    no target means the default accelerator: with no CUDA it raises
+    rather than land on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for mode in ("vm_copy", "vm_nocopy"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TransferEngine(mode=mode).h2d(np.zeros(4, np.float32))
+
+
+@pytest.mark.parametrize("mode", ["vm_copy", "vm_nocopy"])
+def test_bf16_roundtrip_is_bit_exact(mode):
+    """numpy has no bfloat16: ``d2h`` hands back a bf16 tensor's int16
+    bits and ``h2d(..., dtype=torch.bfloat16)`` views them back."""
+    te = TransferEngine(mode=mode)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (3, 5, 7), np.float32)).to(torch.bfloat16)
+    host = te.d2h(x)
+    assert host.dtype == np.int16 and host.shape == (3, 5, 7)
+    back = te.h2d(host, device="cpu", dtype=torch.bfloat16)
+    assert back.dtype == torch.bfloat16
+    assert torch.equal(back.view(torch.int16), x.view(torch.int16))
+    assert te.stats.h2d_bytes == te.stats.d2h_bytes == x.numel() * 2
 
 
 def test_completion_queue_delivery_mask_and_pending():
@@ -617,7 +642,7 @@ def test_transfer_counters_atomic_under_concurrency():
     def work():
         try:
             for _ in range(16):
-                te.d2h(te.h2d(x))
+                te.d2h(te.h2d(x, device="cpu"))
         except Exception as exc:          # noqa: BLE001 — reported below
             errs.append(exc)
     ts = [threading.Thread(target=work) for _ in range(8)]
