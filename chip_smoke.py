@@ -6,15 +6,19 @@
 Phases, each printing its lines and raising on any failure:
 
 1. device — the card's name and power limit (nvidia-smi), torch/CUDA
-   versions, and the time to build the kernels from ``kernels/csrc``
-   (one nvcc per source, all started together);
+   versions, the time to build the kernels from ``kernels/csrc`` (one
+   nvcc per source, all started together), every kernel's registers and
+   spills (ptxas ``-v``) and the tensor-core instructions in the SASS of
+   matmul and flash (wgmma with TMA or cp.async);
 2. kernels — every hand-written kernel against its plain PyTorch
    version on the card, each against a stated tolerance: flash, fused
    paged decode and the sampler at the serving path's shapes (G > 1, a
-   dead slot, NaN-poisoned masked rows, a cross-block tie) and at
+   dead slot, NaN-poisoned masked rows, a cross-block tie), flash at its
+   q-tile edges (S = 1, 63, 64, 65) and at B=4 S=4096, and at
    recurrentgemma's hd=256, Hq/Hkv 10/1 with windows; ring-cache decode
    at C=4096 (partly filled, wrapped, windowed, NaN in invalid slots,
-   ``pos`` on the device); matmul, Sobel and vecadd at ragged and card
+   ``pos`` on the device); matmul at ragged, padded (N % 8 != 0),
+   K % 64 != 0 and card shapes, Sobel and vecadd at ragged and card
    shapes; the RG-LRU scan and the RWKV-6 WKV at ragged, serving and
    B=4 S=4096 shapes (plus an extreme decay); the no-new-token paged
    decode with a dead slot and NaN-poisoned rows;
@@ -50,7 +54,9 @@ Phases, each printing its lines and raising on any failure:
    kernel its device time (torch.profiler/CUPTI; the per-call CUDA-event
    time is printed beside it), its plain version's, one PyTorch call
    computing the same function (``library_ms``, a yardstick the port
-   never calls; none for the two recurrences) and the bound.
+   never calls; none for the two recurrences), the bound, and the
+   achieved TFLOP/s and share of the bound; flash also at B=4 S=4096 and
+   at hd 256 S=2500 with window 2048.
 
 On every path, the launch counters are set to 0 just before it runs and
 read just after; each kernel of the path must have launched.
@@ -151,20 +157,29 @@ def log(*a):
 
 def device_ms(fn, reps=50, warmup=5):
     """Device time of one call: the CUPTI durations of every kernel and
-    copy the call launches (torch.profiler), summed over ``reps`` calls
-    and divided by ``reps``. Per-call CUDA-event timing would add the
-    host's launch latency to kernels this short."""
+    copy the call launches (torch.profiler) over ``reps`` calls, per
+    call. Per-call CUDA-event timing would add the host's launch latency
+    to kernels this short."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(r[0] for r in device_rows(prof)) / reps / 1e3
+    # every call launches the same kernels, but a trace may lose some of
+    # their events (49 of 50, once 8 of 20) or all of them: each name
+    # counts as its mean recorded duration times its launches per call,
+    # and a trace with no device event is taken again
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        if rows:
+            return sum(t / n * -(-n // reps) for t, n, _ in rows) / 1e3
+        log("[time] the trace holds no device event; tracing again")
+    raise AssertionError("five traces held no device event")
 
 
 def device_rows(prof):
@@ -217,6 +232,42 @@ def bound(nbytes, flops, peak):
 
 
 # ---------------------------------------------------------------------------
+# phase 1: what was built
+# ---------------------------------------------------------------------------
+
+#: the tensor-core instructions each redesigned kernel must contain: wgmma
+#: (HGMMA) on tiles loaded by TMA (UTMALDG) in matmul, by cp.async
+#: (LDGSTS) in flash
+TENSOR_CORE_SASS = {"matmul": ("HGMMA", "UTMALDG"),
+                    "flash_attention": ("HGMMA", "LDGSTS")}
+
+
+def report_build(common):
+    """Registers and spills (ptxas ``-v``): each kernel of the two
+    redesigned sources, a summary of every other source; and the
+    tensor-core instructions in the SASS of the redesigned kernels (a
+    redesigned kernel without them fails)."""
+    for name in common.sources():
+        rows = common.resource_report(name)
+        if name in TENSOR_CORE_SASS:
+            for entry, regs, st, ld in rows:
+                log(f"[ptxas] {name}: {entry}: {regs} registers, spill "
+                    f"stores {st} B, spill loads {ld} B")
+        elif rows:
+            regs = [r[1] for r in rows]
+            spilled = [r for r in rows if r[2] or r[3]]
+            log(f"[ptxas] {name}: {len(rows)} kernels, {min(regs)}-"
+                f"{max(regs)} registers, {len(spilled)} with spills (up to "
+                f"{max((r[2] for r in rows), default=0)} B stored)")
+    for name, ops in TENSOR_CORE_SASS.items():
+        counts = common.sass_counts(name, ops)
+        log(f"[sass] {name}: " + ", ".join(f"{op} x{n}"
+                                           for op, n in counts.items()))
+        if not all(counts.values()):
+            raise AssertionError(f"{name}: no {ops} in its SASS")
+
+
+# ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -233,10 +284,10 @@ def _expect(name, what, err, tol):
     return err
 
 
-def flash_inputs(S, Hq, Hkv, dtype, device, seed, hd=64):
+def flash_inputs(S, Hq, Hkv, dtype, device, seed, hd=64, B=1):
     import torch
     g = torch.Generator(device=device).manual_seed(seed)
-    mk = lambda h: torch.randn((1, S, h, hd), generator=g,  # noqa: E731
+    mk = lambda h: torch.randn((B, S, h, hd), generator=g,  # noqa: E731
                                device=device).to(dtype)
     return mk(Hq), mk(Hkv), mk(Hkv)
 
@@ -306,6 +357,17 @@ def check_kernels(device, errs):
                       f"{dn}", _max_err(got, want), TOL[dn])
         if dt == bf16:
             errs["flash_attention"] = max(errs.get("flash_attention", 0), err)
+    # the tensor-core instance's q-tile edges (64 rows a CTA) and the VMM
+    # prefill program's shape, each element within two bf16 ulps
+    for B, S in ((1, 1), (1, 63), (1, 64), (1, 65), (4, 4096)):
+        q, k, v = flash_inputs(S, 16, 16, bf16, device, seed=S, B=B)
+        err = _expect_close("flash_attention",
+                            f"B={B} S={S} Hq=Hkv=16 hd=64 causal bfloat16",
+                            flash_attention_op(q, k, v),
+                            flash_attention_ref(q, k, v), BF16_ULP_ATOL,
+                            BF16_ULP_RTOL)
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        del q, k, v
 
     lens = [37, 0, 129, 256]                  # slot 1 dead; 256 = full table
     for Hq, Hkv, window, dt, nan in ((16, 16, 0, bf16, False),
@@ -440,9 +502,15 @@ def check_app_kernels(device, errs):
     from repro_torch.kernels.vecadd.ref import vecadd_ref
     g = torch.Generator(device=device).manual_seed(21)
     rn = lambda *s: torch.randn(s, generator=g, device=device)  # noqa: E731
-    for m, k, n in ((33, 17, 9), (100, 300, 50), (256, 256, 256),
-                    (4096, 4096, 4096)):
+    # (129, 4104, 257) pads N for TMA; K = 1000 is not a multiple of the
+    # 64-wide K step, M and N not of the 128 x 256 tile
+    for m, k, n, dts in ((33, 17, 9, None), (100, 300, 50, None),
+                         (256, 256, 256, None), (1000, 1000, 1000, None),
+                         (129, 4104, 257, (torch.bfloat16,)),
+                         (4096, 4096, 4096, None)):
         for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-1)):
+            if dts is not None and dt not in dts:
+                continue
             a, b = rn(m, k).to(dt), rn(k, n).to(dt)
             err = _expect_close("matmul", f"({m},{k})@({k},{n}) "
                                 f"{str(dt)[6:]}", matmul_op(a, b),
@@ -1186,6 +1254,22 @@ def time_kernels(device):
         "library_ms": timed(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)),
         **bnd}
+    # the VMM's full-width prefill program: B=4, S=4096, causal (the plain
+    # version materialises 4 GB of scores: two calls)
+    B, S = 4, 4096
+    q, k, v = flash_inputs(S, H, H, bf16, device, seed=3, B=B)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = S * (S + 1) // 2
+    bnd = bound(4 * B * S * H * hd * 2, B * H * pairs * 4 * hd, BF16_FLOPS)
+    out["flash_attention@B4S4096"] = {
+        "shape": f"B={B} S={S} Hq=Hkv={H} hd={hd} bf16 causal",
+        "ms": timed(lambda: flash_attention_op(q, k, v), 10, 2),
+        "plain_ms": timed(lambda: flash_attention_ref(q, k, v), 2, 1),
+        "library_ms": timed(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 10, 2),
+        **bnd}
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
 
     # fused decode: B=4, 16 heads, ps=16, nb=16, lengths of a mid-run step
     lens = [64, 161, 96, 143]
@@ -1232,12 +1316,16 @@ def time_kernels(device):
     out.update(time_recurrent_kernels(device))
     for name, r in out.items():
         lib = r["library_ms"]
+        ms = r["ms"][0]
         log(f"[time] {name} {r['shape']}: device ms (event ms per call) — "
-            f"kernel {r['ms'][0]:.4f} ({r['ms'][1]:.4f}), plain "
+            f"kernel {ms:.4f} ({r['ms'][1]:.4f}), plain "
             f"{r['plain_ms'][0]:.4f} ({r['plain_ms'][1]:.4f}), library "
             + (f"{lib[0]:.4f} ({lib[1]:.4f})" if lib else "none")
             + f"; bound {r['bound_ms']:.6f} ms ({r['bound_by']}: "
-            f"{r['bound_bytes']:,} B, {r['bound_flops']:,} FLOP)")
+            f"{r['bound_bytes']:,} B, {r['bound_flops']:,} FLOP); kernel "
+            f"{r['bound_flops'] / ms / 1e9:.2f} TFLOP/s, "
+            f"{r['bound_bytes'] / ms / 1e6:.1f} GB/s, "
+            f"{100 * r['bound_ms'] / ms:.1f}% of the bound")
         for key in ("ms", "plain_ms", "library_ms"):
             if r[key] is not None:
                 r[key] = r[key][0]                 # the JSON line: device
@@ -1431,6 +1519,29 @@ def time_recurrent_kernels(device):
         "library_ms": timed(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)),
         **bnd}
+    # recurrentgemma's long prompt: S=2500, window 2048 (SDPA takes the
+    # window as a boolean mask)
+    S = 2500
+    q, k, v = flash_inputs(S, Hq, 1, torch.bfloat16, device, seed=3, hd=hd)
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).expand(1, Hq, S, hd)
+    vt = v.transpose(1, 2).expand(1, Hq, S, hd)
+    pos = torch.arange(S, device=device)
+    diff = pos[:, None] - pos[None, :]
+    win = (diff >= 0) & (diff < 2048)
+    pairs = int(win.sum())
+    bnd = bound((2 * S * Hq * hd + 2 * S * hd) * 2, Hq * pairs * 4 * hd,
+                BF16_FLOPS)
+    out["flash_attention_hd256@S2500"] = {
+        "shape": f"B=1 S={S} Hq={Hq} Hkv=1 hd={hd} window=2048 bf16",
+        "ms": timed(lambda: flash_attention_op(q, k, v, window=2048), 20, 2),
+        "plain_ms": timed(lambda: flash_attention_ref(q, k, v, window=2048),
+                          5, 1),
+        "library_ms": timed(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=win), 20, 2),
+        **bnd}
+    del q, k, v, qt, kt, vt
+
     d = decode_inputs(lens, Hq, 1, torch.bfloat16, device, seed=5, hd=hd)
     bnd = decode_bound(d, True)
     out["fused_paged_decode_hd256"] = {
@@ -1479,6 +1590,7 @@ def main():
     common.build_all()
     log(f"[build] {len(common.sources())} kernel sources built in "
         f"{time.perf_counter() - t0:.1f}s")
+    report_build(common)
 
     errs = {}
     check_kernels(device, errs)

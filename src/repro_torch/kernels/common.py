@@ -8,7 +8,9 @@ with the card, into its own shared library with a plain C interface::
          -Xcompiler -fPIC -o build/kernels/<name>_<hash>.so <name>.cu
 
 The file name carries a hash of the sources and flags, so an edited
-kernel is rebuilt and a cached one is reused. :func:`build_all` starts
+kernel is rebuilt and a cached one is reused. Each build also passes
+``-Xptxas -v`` and keeps nvcc's output beside the library, so a run can
+print every kernel's registers and spills (:func:`resource_report`). :func:`build_all` starts
 one ``nvcc`` per source, all at once. Libraries are loaded with
 ``ctypes``; every pointer and the stream cross as ``c_void_p``. Every C
 entry returns ``cudaGetLastError()`` and :func:`check` raises on a
@@ -22,6 +24,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -82,7 +85,8 @@ def _start_build(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -96,7 +100,65 @@ def _finish_build(name: str, job):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)              # atomic: concurrent builds agree
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for ``csrc/<name>.cu`` (with ptxas's ``-v`` report of
+    each kernel's registers, shared memory and spills); empty when the
+    library was built without it."""
+    path = _lib_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
+
+
+def _toolkit(tool: str) -> str:
+    return os.path.join(os.path.dirname(_nvcc()), tool)
+
+
+def resource_report(name: str):
+    """(entry, registers, spill store bytes, spill load bytes) of each
+    kernel of ``csrc/<name>.cu`` as built, entries demangled with the
+    toolkit's ``cu++filt`` where it has one."""
+    rows = ptxas_usage(build_log(name))
+    filt = _toolkit("cu++filt")
+    if rows and os.path.exists(filt):
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True).stdout
+        names = out.splitlines()
+        if len(names) == len(rows):
+            rows = [(n, *r[1:]) for n, r in zip(names, rows)]
+    return rows
+
+
+def sass_counts(name: str, opcodes) -> Dict[str, int]:
+    """How often each SASS opcode occurs in the built library of
+    ``csrc/<name>.cu`` (``cuobjdump -sass``)."""
+    sass = subprocess.run([_toolkit("cuobjdump"), "-sass",
+                           str(_lib_path(name))], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
+
+
+def ptxas_usage(log: str):
+    """Per kernel of a ``-Xptxas -v`` log: (mangled entry name,
+    registers, spill store bytes, spill load bytes), in log order."""
+    rows, entry, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            rows.append((entry, int(m.group(1)), *spills))
+            entry = None
+    return rows
 
 
 def sources():

@@ -5,7 +5,10 @@ by head arithmetic.
 
 A CUDA tensor launches ``csrc/flash_attention.cu`` on the current
 stream; a CPU tensor runs :func:`flash_attention_ref`. The kernel masks
-the ragged Sq/Sk edge itself, so nothing is padded here."""
+the ragged Sq/Sk edge itself, so nothing is padded here. bf16 runs on
+the tensor cores, fp32 on the SIMT instance (see the source note)."""
+import torch
+
 from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -29,6 +32,10 @@ def flash_attention_op(q, k, v, *, causal=True, window=0):
     require(hd in HEAD_DIMS, f"kernel takes hd in {HEAD_DIMS}, got {hd}")
     require(Sq > 0 and Sk > 0, "empty sequence")
     common.check_contiguous(q=q, k=k, v=v)
+    require(q.dtype != torch.bfloat16
+            or all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+            "the bf16 flash kernel reads 16-byte chunks: q/k/v bases must "
+            "be 16-byte aligned")
     out = q.new_empty(q.shape)
     fn = common.entry(NAME, "flash_attention_fwd", "ppppiiiiiiiiifp")
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
