@@ -8,20 +8,28 @@ Phases, each printing its lines and raising on any failure:
 1. device — the card's name and power limit (nvidia-smi), torch/CUDA
    versions, the time to build the kernels from ``kernels/csrc`` (one
    nvcc per source, all started together), every kernel's registers and
-   spills (ptxas ``-v``) and the tensor-core instructions in the SASS of
-   matmul and flash (wgmma with TMA or cp.async);
+   spills (ptxas ``-v``; one line a kernel for the sources redesigned for
+   Hopper) and the tensor-core instructions in the SASS of matmul and
+   flash (wgmma with TMA or cp.async);
 2. kernels — every hand-written kernel against its plain PyTorch
    version on the card, each against a stated tolerance: flash, fused
    paged decode and the sampler at the serving path's shapes (G > 1, a
    dead slot, NaN-poisoned masked rows, a cross-block tie), flash at its
    q-tile edges (S = 1, 63, 64, 65) and at B=4 S=4096, and at
    recurrentgemma's hd=256, Hq/Hkv 10/1 with windows; ring-cache decode
-   at C=4096 (partly filled, wrapped, windowed, NaN in invalid slots,
-   ``pos`` on the device); matmul at ragged, padded (N % 8 != 0),
-   K % 64 != 0 and card shapes, Sobel and vecadd at ragged and card
-   shapes; the RG-LRU scan and the RWKV-6 WKV at ragged, serving and
-   B=4 S=4096 shapes (plus an extreme decay); the no-new-token paged
-   decode with a dead slot and NaN-poisoned rows;
+   at C=4096 (partly filled, wrapped, windowed, fewer valid slots than
+   splits, a wrap inside a share and on a split edge, a window emptying
+   shares, NaN in invalid slots, ``pos`` on the device) at every head dim
+   and at Hq/Hkv up to 16, hd 256 10/1 with window 2048 among them;
+   matmul at ragged, padded (N % 8 != 0), K % 64 != 0 and card shapes,
+   Sobel and vecadd at ragged and card shapes; the RG-LRU scan and the
+   RWKV-6 WKV at ragged, serving and B=4 S=4096 shapes (plus an extreme
+   decay); the no-new-token paged decode with a dead slot and
+   NaN-poisoned rows; the split walk's edges of the fused and paged
+   decode (dead slot, length 1, full table, a length on a split edge, a
+   window emptying splits) at every head dim and G = 1, 3, 16, clean and
+   NaN-poisoned; bit-equal reruns of the three decode kernels, and one
+   launch and no host sync a call;
 3. serve, monolithic — full-width ``qwen1.5-0.5b`` (random weights from
    a fixed seed) through ``ServeEngine``: 8 requests, batch 4, prompts of
    32–130 tokens, 32 new tokens each, capacity 256, 16-token pages;
@@ -56,7 +64,9 @@ Phases, each printing its lines and raising on any failure:
    computing the same function (``library_ms``, a yardstick the port
    never calls; none for the two recurrences), the bound, and the
    achieved TFLOP/s and share of the bound; flash also at B=4 S=4096 and
-   at hd 256 S=2500 with window 2048.
+   at hd 256 S=2500 with window 2048; fused decode also at a long
+   context (nb=160, lengths up to 2560) at hd 64 16/16 and hd 256 10/1
+   with window 2048.
 
 On every path, the launch counters are set to 0 just before it runs and
 read just after; each kernel of the path must have launched.
@@ -240,16 +250,19 @@ def bound(nbytes, flops, peak):
 #: (LDGSTS) in flash
 TENSOR_CORE_SASS = {"matmul": ("HGMMA", "UTMALDG"),
                     "flash_attention": ("HGMMA", "LDGSTS")}
+#: the sources redesigned for Hopper, whose every kernel gets a line
+REDESIGNED = ("matmul", "flash_attention", "fused_paged_decode",
+              "decode_attention")
 
 
 def report_build(common):
-    """Registers and spills (ptxas ``-v``): each kernel of the two
-    redesigned sources, a summary of every other source; and the
-    tensor-core instructions in the SASS of the redesigned kernels (a
-    redesigned kernel without them fails)."""
+    """Registers and spills (ptxas ``-v``): each kernel of the redesigned
+    sources, a summary of every other source; and the tensor-core
+    instructions in the SASS of the tensor-core kernels (a redesigned
+    kernel without them fails)."""
     for name in common.sources():
         rows = common.resource_report(name)
-        if name in TENSOR_CORE_SASS:
+        if name in REDESIGNED:
             for entry, regs, st, ld in rows:
                 log(f"[ptxas] {name}: {entry}: {regs} registers, spill "
                     f"stores {st} B, spill loads {ld} B")
@@ -417,6 +430,150 @@ def check_kernels(device, errs):
     check_ring_decode(device, errs)
     check_app_kernels(device, errs)
     check_recurrent_kernels(device, errs)
+    check_split_edges(device, errs)
+    check_one_launch(device)
+
+
+#: the split walk's edges at nb=16, ps=16 (4 CTAs a (slot, kv head) of
+#: 64 tokens at 16/16, 16 CTAs of one page at 12/4 and 16/1): a dead
+#: slot, length 1 (the new token only, fewer rows than splits), a full
+#: table, lengths ending on a split edge (64; 32 at one page a CTA); with
+#: window 40 the full slot's first splits hold no row
+SPLIT_EDGE_LENS = ([0, 1, 256, 64], [5, 32, 33, 200])
+
+
+def _check_decode_case(name, what, got, want, dead):
+    """fp32 at 2e-5, bf16 within two ulps, finite, dead slots zero."""
+    import torch
+    if any(bool((got[b] != 0).any()) for b in dead):
+        raise AssertionError(f"{name} {what}: dead slot not zero")
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{name} {what}: non-finite output")
+    if got.dtype == torch.float32:
+        err = _max_err(got, want)
+        if err > TOL["float32"]:
+            raise AssertionError(f"{name} {what}: error {err} > 2e-5")
+        return err
+    from repro_torch.launch.apps import max_excess
+    err, excess = max_excess(got, want, BF16_ULP_ATOL, BF16_ULP_RTOL)
+    if excess > 0:
+        raise AssertionError(f"{name} {what}: outside two bf16 ulps "
+                             f"(max abs err {err})")
+    return err
+
+
+def _paged_decode_call(d, window):
+    """(the kernel's call, the plain output) of the fused decode when
+    ``d`` holds the step's new K/V, else of the no-new-token one."""
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_op, fused_decode_step_op)
+    from repro_torch.kernels.decode_attention.ref import (
+        fused_paged_decode_ref, paged_decode_attention_ref)
+    if "k_new" in d:
+        return (lambda: fused_decode_step_op(**d, window=window),
+                fused_paged_decode_ref(**d, window=window))
+    return (lambda: decode_attention_op(
+        d["q"], d["k_pages"], d["v_pages"], d["lengths"], window=window,
+        block_tables=d["block_tables"]),
+        paged_decode_attention_ref(**d, window=window))
+
+
+def check_split_edges(device, errs):
+    """The fused and the no-new-token paged decode at every head dim and
+    at G = 1, 3 and 16 (one query head a channel, several, the most the
+    kernels take), at the split walk's edges (``SPLIT_EDGE_LENS``, window
+    0 and 40), each on clean pools and with NaN in every masked pool row;
+    bf16 within two ulps of the plain version, fp32 at 2e-5; a second
+    launch on the same inputs must give the same bits."""
+    import itertools
+
+    import torch
+    log(f"[kernel] split edges: lens {SPLIT_EDGE_LENS}, window 0 and 40, "
+        "nb=16 ps=16, clean and NaN in every masked row; bf16 within two "
+        "ulps, fp32 at 2e-5")
+    for new, name in ((True, "fused_paged_decode"),
+                      (False, "paged_decode_attention")):
+        for hd, (Hq, Hkv), dt in itertools.product(
+                (16, 32, 64, 128, 256), ((16, 16), (12, 4), (16, 1)),
+                (torch.bfloat16, torch.float32)):
+            worst, runs = 0.0, 0
+            for lens, window in itertools.product(SPLIT_EDGE_LENS, (0, 40)):
+                d = decode_inputs(lens, Hq, Hkv, dt, device,
+                                  seed=hd + Hq + window + lens[0], hd=hd)
+                if not new:
+                    for kk in ("k_new", "v_new"):
+                        d.pop(kk)
+                for nan in (False, True):
+                    if nan:
+                        poison_masked_rows(d, window, new)
+                    run, want = _paged_decode_call(d, window)
+                    got = run()
+                    what = (f"hd={hd} Hq={Hq} Hkv={Hkv} lens={lens} "
+                            f"window={window} nan_masked={nan} {dt}")
+                    if not torch.equal(got, run()):
+                        raise AssertionError(f"{name} {what}: two launches "
+                                             "differ")
+                    err = _check_decode_case(
+                        name, what, got, want,
+                        [b for b, L in enumerate(lens) if not L])
+                    worst, runs = max(worst, err), runs + 1
+            dn = str(dt).replace("torch.", "")
+            log(f"[kernel] {name} split edges hd={hd} Hq={Hq} Hkv={Hkv} "
+                f"{dn}: {runs} cases ok, max_abs_err={worst:.3g}, "
+                "bit-equal reruns")
+            if dt == torch.bfloat16:
+                errs[name] = max(errs.get(name, 0), worst)
+
+
+def check_one_launch(device):
+    """Each call of the three decode-attention ops is one launch of its
+    kernel (the wrapper's counter and the profiler's kernel count) and
+    makes no host sync (``torch.cuda.set_sync_debug_mode("error")``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import common
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_op, fused_decode_step_op)
+    d = decode_inputs([64, 161, 96, 143], 16, 16, torch.bfloat16, device,
+                      seed=4)
+    q, k, v = ring_inputs(4, 4096, 16, 16, torch.bfloat16, device, seed=8)
+    pos = torch.tensor(5000, dtype=torch.int32, device=device)
+    calls = {
+        "fused_paged_decode": lambda: fused_decode_step_op(**d),
+        "paged_decode_attention": lambda: decode_attention_op(
+            d["q"], d["k_pages"], d["v_pages"], d["lengths"],
+            block_tables=d["block_tables"]),
+        "decode_attention": lambda: decode_attention_op(q, k, v, pos)}
+    reps = 20
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        common.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        counted = dict(common.LAUNCHES)
+        torch.cuda.synchronize()
+        for _ in range(5):                 # a trace may hold no event
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            rows = device_rows(prof)
+            if rows:
+                break
+        events = sum(n for _, n, _ in rows)
+        ok = (counted == {name: 1} and len(rows) == 1
+              and 1 <= events <= reps)
+        log(f"[kernel] {name}: one call = launch counters {counted}, no "
+            f"host sync; {reps} calls traced = {events} device events of "
+            f"{len(rows)} kernel(s) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: a call is not one launch")
+    common.reset_launches()
 
 
 def ring_inputs(B, C, Hq, Hkv, dtype, device, seed, hd=64):
@@ -427,50 +584,69 @@ def ring_inputs(B, C, Hq, Hkv, dtype, device, seed, hd=64):
     return rn(B, 1, Hq, hd), rn(B, C, Hkv, hd), rn(B, C, Hkv, hd)
 
 
+#: ring cases at C=4096 (4, 8 or 16 CTAs a (slot, kv head) by shape:
+#: shares of 1024, 512 or 256 logical rows): (pos, window, pos on the
+#: device). The first three are the original checks (partly filled,
+#: wrapped, a window over a wrapped ring); then fewer valid slots than
+#: splits (pos 2), a valid run that wraps inside a share (start 105) and
+#: on a split edge (start 3072: row 1024), a window that empties all but
+#: the first share or two, and a full ring
+RING_CASES = ((100, 0, False), (4200, 0, True), (4200, 64, False),
+              (2, 0, True), (7167, 0, False), (5000, 600, True),
+              (5000, 0, False))
+#: (Hq, Hkv, hd, window override): the original shapes, recurrentgemma's
+#: hd 256 MQA with window 2048, and the rest of the kernel's coverage
+RING_SHAPES = ((16, 16, 64, None), (16, 8, 64, None), (8, 1, 64, None),
+               (10, 1, 256, 2048), (16, 1, 128, None), (12, 4, 32, None),
+               (16, 16, 16, None))
+
+
 def check_ring_decode(device, errs):
-    """Ring-cache decode at C=4096: a partly filled ring, a wrapped ring,
-    a window over a wrapped ring, NaN in every invalid slot, and ``pos``
-    given as a device int32 (read by the kernel, no host sync)."""
+    """Ring-cache decode at C=4096 (``RING_CASES`` at every shape of
+    ``RING_SHAPES``), each on clean caches and with NaN in every invalid
+    slot, ``pos`` as an int and as a device int32 (read by the kernel, no
+    host sync); bf16 within two ulps of the plain version, fp32 at 2e-5;
+    a second launch on the same inputs must give the same bits."""
     import torch
     from repro_torch.kernels.decode_attention.ops import decode_attention_op
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref, ring_valid)
     B, C = 4, 4096
-    for Hq, Hkv in ((16, 16), (16, 8), (8, 1)):
+    for Hq, Hkv, hd, wfix in RING_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
-            for pos, window, nan, on_dev in ((100, 0, False, False),
-                                             (4200, 0, False, True),
-                                             (4200, 64, False, False),
-                                             (100, 0, True, True),
-                                             (4200, 64, True, False)):
+            worst, runs = 0.0, 0
+            cases = RING_CASES + (((1500, wfix, True), (5000, wfix, False))
+                                  if wfix else ())
+            for pos, window, on_dev in cases:
                 q, k, v = ring_inputs(B, C, Hq, Hkv, dt, device,
-                                      seed=Hq + Hkv + pos + window)
-                if nan:
-                    bad = ~ring_valid(C, pos, window, device)
-                    k[:, bad] = float("nan")
-                    v[:, bad] = float("nan")
+                                      seed=Hq + Hkv + pos + window, hd=hd)
                 p = (torch.tensor(pos, dtype=torch.int32, device=device)
                      if on_dev else pos)
-                got = decode_attention_op(q, k, v, p, window=window)
-                if nan:
-                    k = torch.nan_to_num(k, nan=0.0)
-                    v = torch.nan_to_num(v, nan=0.0)
                 want = decode_attention_ref(q, k, v, pos, window=window)
-                dn = str(dt).replace("torch.", "")
-                what = (f"B={B} C={C} Hq={Hq} Hkv={Hkv} hd=64 pos={pos}"
-                        f"{' (device)' if on_dev else ''} window={window} "
-                        f"nan_invalid={nan} {dn}")
-                if dt == torch.bfloat16:
-                    err = _expect_close("decode_attention", what, got, want,
-                                        BF16_ULP_ATOL, BF16_ULP_RTOL)
-                else:
-                    if not bool(torch.isfinite(got).all()):
-                        raise AssertionError("decode_attention: non-finite "
-                                             "output")
-                    err = _expect("decode_attention", what,
-                                  _max_err(got, want), TOL[dn])
+                for nan in (False, True):
+                    if nan:
+                        bad = ~ring_valid(C, pos, window, device)
+                        k[:, bad] = float("nan")
+                        v[:, bad] = float("nan")
+                    got = decode_attention_op(q, k, v, p, window=window)
+                    what = (f"B={B} C={C} Hq={Hq} Hkv={Hkv} hd={hd} "
+                            f"pos={pos}{' (device)' if on_dev else ''} "
+                            f"window={window} nan_invalid={nan} {dt}")
+                    if not torch.equal(got, decode_attention_op(
+                            q, k, v, p, window=window)):
+                        raise AssertionError(f"decode_attention {what}: "
+                                             "two launches differ")
+                    err = _check_decode_case("decode_attention", what, got,
+                                             want, [])
+                    worst, runs = max(worst, err), runs + 1
+            dn = str(dt).replace("torch.", "")
+            log(f"[kernel] decode_attention B={B} C={C} Hq={Hq} Hkv={Hkv} "
+                f"hd={hd} {dn}: {runs} cases ok (pos, window "
+                f"{[c[:2] for c in cases]}; clean and NaN in invalid "
+                f"slots), max_abs_err={worst:.3g}, bit-equal reruns")
+            if dt == torch.bfloat16:
                 errs["decode_attention"] = max(
-                    errs.get("decode_attention", 0), err)
+                    errs.get("decode_attention", 0), worst)
 
 
 def _expect_close(name, what, got, want, atol, rtol):
@@ -1459,7 +1635,7 @@ def time_recurrent_kernels(device):
                               *((2, 1) if big else ())),
             "library_ms": None, **bnd}
 
-    def gather_sdpa(d, with_new):
+    def gather_sdpa(d, with_new, window=0):
         Bq, _, Hq, hd = d["q"].shape
         Hkv = d["k_pages"].shape[2]
         S_tab = d["block_tables"].shape[1] * d["k_pages"].shape[1]
@@ -1471,24 +1647,31 @@ def time_recurrent_kernels(device):
             at = (tok == d["lengths"][:, None] - 1)[:, :, None, None]
             kk = torch.where(at, d["k_new"], kk)
             vv = torch.where(at, d["v_new"], vv)
-        valid = (tok < d["lengths"][:, None])[:, None, None, :]
+        valid = tok < d["lengths"][:, None]
+        if window:
+            valid &= tok >= d["lengths"][:, None] - window
+        valid = valid[:, None, None, :]
         G = Hq // Hkv
         kk = kk.transpose(1, 2).repeat_interleave(G, dim=1)
         vv = vv.transpose(1, 2).repeat_interleave(G, dim=1)
         return F.scaled_dot_product_attention(d["q"].transpose(1, 2), kk, vv,
                                               attn_mask=valid)
 
-    def decode_bound(d, with_new):
+    def decode_bound(d, with_new, window=0):
+        """Bytes: the live pool rows (inside the window; the new token's
+        from k/v_new), q, out, lengths and the live table entries."""
         Bq, _, Hq, hd = d["q"].shape
         Hkv, ps = d["k_pages"].shape[2], d["k_pages"].shape[1]
         lens = d["lengths"].tolist()
-        rows = sum(L - 1 if with_new else L for L in lens)
-        pages = sum(-(-L // ps) for L in lens)
+        lo = [max(0, L - window) if window else 0 for L in lens]
+        rows = sum(L - a - (1 if with_new else 0) for L, a in zip(lens, lo))
+        pages = sum(-(-L // ps) - a // ps for L, a in zip(lens, lo))
         nbytes = (2 * rows * Hkv * hd * 2                   # pool K, V rows
                   + 2 * Bq * Hq * hd * 2                    # q, out
                   + (2 * Bq * Hkv * hd * 2 if with_new else 0)  # k/v_new
                   + 4 * Bq + 4 * pages)                     # lengths, table
-        return bound(nbytes, sum(lens) * Hq * 4 * hd, BF16_FLOPS)
+        live = sum(L - a for L, a in zip(lens, lo))
+        return bound(nbytes, live * Hq * 4 * hd, BF16_FLOPS)
 
     lens = [64, 161, 96, 143]
     d = decode_inputs(lens, 16, 16, torch.bfloat16, device, seed=4)
@@ -1543,14 +1726,30 @@ def time_recurrent_kernels(device):
     del q, k, v, qt, kt, vt
 
     d = decode_inputs(lens, Hq, 1, torch.bfloat16, device, seed=5, hd=hd)
-    bnd = decode_bound(d, True)
+    bnd = decode_bound(d, True, 2048)
     out["fused_paged_decode_hd256"] = {
         "shape": f"B=4 Hq={Hq} Hkv=1 hd={hd} ps=16 nb=16 lens={lens} "
                  "window=2048 bf16",
         "ms": timed(lambda: fused_decode_step_op(**d, window=2048)),
         "plain_ms": timed(lambda: fused_paged_decode_ref(**d, window=2048)),
-        "library_ms": timed(lambda: gather_sdpa(d, True)),
+        "library_ms": timed(lambda: gather_sdpa(d, True, 2048)),
         **bnd}
+    # a long context, where bytes and not latency should set the pace
+    lens = [640, 2560, 1601, 2143]
+    for name, Hq, Hkv, hd, window in (
+            ("fused_paged_decode@long", 16, 16, 64, 0),
+            ("fused_paged_decode_hd256@long", 10, 1, 256, 2048)):
+        d = decode_inputs(lens, Hq, Hkv, torch.bfloat16, device, seed=6,
+                          nb=160, hd=hd)
+        out[name] = {
+            "shape": f"B=4 Hq={Hq} Hkv={Hkv} hd={hd} ps=16 nb=160 "
+                     f"lens={lens} window={window} bf16",
+            "ms": timed(lambda: fused_decode_step_op(**d, window=window)),
+            "plain_ms": timed(lambda: fused_paged_decode_ref(
+                **d, window=window), 10, 2),
+            "library_ms": timed(lambda: gather_sdpa(d, True, window)),
+            **decode_bound(d, True, window)}
+        del d
     return out
 
 

@@ -5,215 +5,129 @@
 // per-slot ring caches k/v (B,C,Hkv,hd) sharing one scalar position pos.
 // A slot is valid if slot <= pos or the ring is full (pos >= C); with a
 // window, only slots whose ring age (pos%C - slot) mod C is < window.
-// Softmax is an fp32 online softmax from a finite -1e30 start; the output
-// is written in the input dtype.
+// Softmax is fp32 from a finite -1e30 start; the output is written in the
+// input dtype. hd in {16, 32, 64, 128, 256}, Hq / Hkv up to 16.
 //
 // The valid slots are always the last n = min(pos+1, C[, window]) slots
-// in ring order, ending at pos % C: at most two contiguous runs. The
-// kernel walks exactly those and never loads any other slot, so a NaN in
-// an unwritten slot cannot reach p * v (the TPU kernel multiplies p = 0
-// into every slot it visits).
-//
-// pos is read from a device int32 when one is given, so a decode step
-// needs no host sync; otherwise it is the value passed by the host.
+// in ring order, ending at pos % C: logical row j in [0, n) is slot
+// (start + j) mod C, at most two contiguous runs. The kernel reads
+// exactly those and never any other slot, so a NaN in an unwritten slot
+// cannot reach p * v (the TPU kernel multiplies p = 0 into every slot it
+// visits). pos is read from a device int32 when one is given, so a
+// decode step needs no host sync; otherwise it is the value passed by
+// the host.
 //
 // What bounds it on an H100: bytes. Each (slot, kv head) reads its n live
-// K and V rows once (2 * n * hd * sizeof(T)) and does 4 * G * hd FLOP per
-// row: ~1 FLOP per byte, far below the card's balance point.
+// K and V rows once (2 * n * hd * sizeof(T)) and does 4 * G * hd FLOP a
+// row: ~1 FLOP a byte, far below the card's balance point. At B=4, 16
+// kv heads and a full 4096-slot ring that is 67 MB, 20 us at 3.35 TB/s.
+// One CTA per (kv head, slot) put 64 CTAs on 132 SMs, each streaming
+// 4,096 rows with 32 in flight (~730 GB/s).
 //
-// Design: one CTA per (kv head, slot b), so the G query heads of a group
-// share every K/V row load. Each row is read as 16-byte vectors by a
-// group of LPT = hd / (16 / sizeof(T)) lanes, so one warp streams 32 / LPT
-// rows at once; each lane group keeps its own online-softmax state (m, l
-// and its share of the fp32 accumulator) in registers, with no barrier in
-// the walk. Lane groups merge by shuffles, warps through shared memory.
-#include <stdint.h>
-
-#include "common.cuh"
+// Design (decode_core.cuh, shared with the paged kernels): a cluster of
+// `splits` CTAs per (kv head, slot), each taking a contiguous share of
+// the logical rows [0, C) (4 x 1024 at that shape: 256 CTAs, one wave of
+// ~2 an SM; 8 x 512 needed two waves, since only 62 clusters of 8 fit at
+// once); each streams its rows through a 3-tile cp.async ring of 8 KB K +
+// 8 KB V tiles, up to 32 KB a CTA in flight; scores per chunk of rows,
+// one max and one rescale per chunk and head, state in registers; the
+// cluster merges its partials through distributed shared memory in rank
+// order within the same launch.
+#include "decode_core.cuh"
 
 namespace {
 
-constexpr int NT = 256;
-constexpr int NW = NT / 32;
+template <typename T>
+struct RingRows {
+  const T* k;             // slot 0 of (slot b, kv head)
+  const T* v;
+  int start, C;
+  size_t row;             // Hkv * HD
 
-template <typename T, int DPL>
-__device__ __forceinline__ void load_row(const T* p, float (&dst)[DPL]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) dst[i] = rt::to_float(e[i]);
-}
+  __device__ __forceinline__ const T* k_base() const { return k; }
+  __device__ __forceinline__ const T* v_base() const { return v; }
+  __device__ __forceinline__ void at(int x, const T*& kr,
+                                     const T*& vr) const {
+    int slot = start + x;
+    if (slot >= C) slot -= C;
+    kr = k + (size_t)slot * row;
+    vr = v + (size_t)slot * row;
+  }
+};
 
-template <typename T, int HD, int G>
-__global__ void __launch_bounds__(NT) ring_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
+template <typename T, int HD, int GPC>
+__global__ void __launch_bounds__(dc::block_threads(GPC))
+    ring_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out,
     const int* __restrict__ pos_ptr, int pos_val, int C, int Hq, int Hkv,
-    int window, float scale) {
-  constexpr int DPL = 16 / sizeof(T);     // dims per lane (one 16 B load)
-  constexpr int LPT = HD / DPL;           // lanes per row
-  constexpr int TPW = 32 / LPT;           // rows per warp step
-  constexpr int NGR = NW * TPW;           // rows in flight per CTA
-  static_assert(LPT >= 1 && LPT <= 32 && 32 % LPT == 0, "bad head dim");
-  __shared__ float red_m[NW][G], red_l[NW][G];
-  __shared__ float red_acc[NW][G][HD];
-
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = lane / LPT, li = lane % LPT;
+    int window, int share, float scale2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv;
   const int pos = pos_ptr != nullptr ? *pos_ptr : pos_val;
   int n = pos >= C ? C : pos + 1;
   if (window > 0 && window < n) n = window;
   T* ob = out + ((size_t)b * Hq + (size_t)hk * G) * HD;
-  if (n <= 0) {
-    for (int i = threadIdx.x; i < G * HD; i += NT) ob[i] = rt::from_float<T>(0.f);
+  if (n <= 0) {                            // the whole cluster leaves
+    dc::zero_slice(ob, G * HD);
     return;
   }
-  int start = pos % C - n + 1;            // first valid slot in ring order
+  int start = pos % C - n + 1;             // first valid slot in ring order
   if (start < 0) start += C;
-
-  float qr[G][DPL], acc[G][DPL], m[G], l[G];
-  const T* qb = q + ((size_t)b * Hq + (size_t)hk * G) * HD + li * DPL;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    load_row<T, DPL>(qb + g * HD, qr[g]);
-    m[g] = -1e30f;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
-  }
-
+  const int a = blockIdx.x * share;
+  const int e = min(a + share, n);
   const size_t row = (size_t)Hkv * HD;
-  const T* kb = k + ((size_t)b * C * Hkv + hk) * HD + li * DPL;
-  const T* vb = v + ((size_t)b * C * Hkv + hk) * HD + li * DPL;
-  // every lane runs every iteration (the shuffles need the whole warp);
-  // a lane group past the end loads nothing and updates nothing
-  for (int j0 = warp * TPW; j0 < n; j0 += NGR) {
-    const int j = j0 + sub;
-    const bool ok = j < n;
-    float kv[DPL], vv[DPL];
-    if (ok) {
-      int slot = start + j;
-      if (slot >= C) slot -= C;
-      load_row<T, DPL>(kb + (size_t)slot * row, kv);
-      load_row<T, DPL>(vb + (size_t)slot * row, vv);
-    } else {
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) kv[i] = vv[i] = 0.f;
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) part += qr[g][i] * kv[i];
-#pragma unroll
-      for (int off = LPT / 2; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (ok) {
-        const float s = part * scale;
-        const float mn = fmaxf(m[g], s);
-        const float alpha = expf(m[g] - mn);
-        const float p = expf(s - mn);
-        l[g] = l[g] * alpha + p;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[g][i] = acc[g][i] * alpha + p * vv[i];
-        m[g] = mn;
-      }
-    }
-  }
+  const size_t base = ((size_t)b * C * Hkv + hk) * HD;
+  const RingRows<T> rows{k + base, v + base, start, C, row};
+  dc::walk_and_merge<T, HD, GPC>(rows,
+                                 q + ((size_t)b * Hq + (size_t)hk * G) * HD,
+                                 ob, G, a, e, scale2, smem);
+}
 
-  // merge the lane groups of the warp (xor over whole rows of lanes)
-#pragma unroll
-  for (int off = LPT; off < 32; off <<= 1) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
-      const float mn = fmaxf(m[g], mo);
-      const float a = expf(m[g] - mn), ao = expf(mo - mn);
-      l[g] = l[g] * a + lo * ao;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const float x = __shfl_xor_sync(0xffffffffu, acc[g][i], off);
-        acc[g][i] = acc[g][i] * a + x * ao;
-      }
-      m[g] = mn;
-    }
-  }
-  if (sub == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) red_acc[warp][g][li * DPL + i] = acc[g][i];
-      if (li == 0) {
-        red_m[warp][g] = m[g];
-        red_l[warp][g] = l[g];
-      }
-    }
-  }
-  __syncthreads();
-
-  // merge the warps
-  for (int i = threadIdx.x; i < G * HD; i += NT) {
-    const int g = i / HD, d = i % HD;
-    float mx = -1e30f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, red_m[w][g]);
-    float sum = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float e = expf(red_m[w][g] - mx);
-      sum += red_l[w][g] * e;
-      a += red_acc[w][g][d] * e;
-    }
-    ob[i] = rt::from_float<T>(a / fmaxf(sum, 1e-30f));
-  }
+template <typename T, int HD, int GPC>
+int launch(const void* q, const void* k, const void* v, void* out,
+           const int* pos_ptr, int pos_val, int B, int C, int Hq, int Hkv,
+           int window, int splits, int share, float scale, cudaStream_t st) {
+  static int allowed[16] = {};
+  return dc::launch_clusters(
+      ring_decode_kernel<T, HD, GPC>, allowed, dc::block_threads(GPC),
+      splits, Hkv, B, (size_t)dc::RING_BYTES, st, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), pos_ptr, pos_val, C, Hq, Hkv, window, share,
+      scale * dc::LOG2E);
 }
 
 template <typename T, int HD>
+int launch_g(const void* q, const void* k, const void* v, void* out,
+             const int* pos_ptr, int pos_val, int B, int C, int Hq, int Hkv,
+             int window, int splits, int share, float scale,
+             cudaStream_t st) {
+  if (Hq == Hkv)
+    return launch<T, HD, 1>(q, k, v, out, pos_ptr, pos_val, B, C, Hq, Hkv,
+                            window, splits, share, scale, st);
+  return launch<T, HD, dc::GPC_MAX>(q, k, v, out, pos_ptr, pos_val, B, C, Hq,
+                                    Hkv, window, splits, share, scale, st);
+}
+
+template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* out,
               const int* pos_ptr, int pos_val, int B, int C, int Hq, int Hkv,
-              int window, float scale, cudaStream_t st) {
-  const dim3 grid(Hkv, B);
-#define RT_RD_CASE(G_)                                                    \
-  case G_:                                                                \
-    ring_decode_kernel<T, HD, G_><<<grid, NT, 0, st>>>(                   \
-        static_cast<const T*>(q), static_cast<const T*>(k),               \
-        static_cast<const T*>(v), static_cast<T*>(out), pos_ptr, pos_val, \
-        C, Hq, Hkv, window, scale);                                       \
-    break;
-  switch (Hq / Hkv) {
-    RT_RD_CASE(1)
-    RT_RD_CASE(2)
-    RT_RD_CASE(4)
-    RT_RD_CASE(8)
+              int hd, int window, int splits, int share, float scale,
+              cudaStream_t st) {
+#define RT_RD_CASE(HD_)                                                   \
+  case HD_:                                                               \
+    return launch_g<T, HD_>(q, k, v, out, pos_ptr, pos_val, B, C, Hq, Hkv, \
+                            window, splits, share, scale, st);
+  switch (hd) {
+    RT_RD_CASE(16)
+    RT_RD_CASE(32)
+    RT_RD_CASE(64)
+    RT_RD_CASE(128)
+    RT_RD_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef RT_RD_CASE
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out,
-           const int* pos_ptr, int pos_val, int B, int C, int Hq, int Hkv,
-           int hd, int window, float scale, cudaStream_t st) {
-  switch (hd) {
-    case 16:
-      return launch_hd<T, 16>(q, k, v, out, pos_ptr, pos_val, B, C, Hq, Hkv,
-                              window, scale, st);
-    case 32:
-      return launch_hd<T, 32>(q, k, v, out, pos_ptr, pos_val, B, C, Hq, Hkv,
-                              window, scale, st);
-    case 64:
-      return launch_hd<T, 64>(q, k, v, out, pos_ptr, pos_val, B, C, Hq, Hkv,
-                              window, scale, st);
-    case 128:
-      return launch_hd<T, 128>(q, k, v, out, pos_ptr, pos_val, B, C, Hq, Hkv,
-                               window, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -221,17 +135,20 @@ int launch(const void* q, const void* k, const void* v, void* out,
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 void* out, const void* pos_ptr, int pos_val,
                                 int dtype, int B, int C, int Hq, int Hkv,
-                                int hd, int window, float scale,
-                                void* stream) {
-  if (B <= 0 || C <= 0 || Hkv <= 0 || Hq % Hkv != 0)
+                                int hd, int window, int splits, int share,
+                                float scale, void* stream) {
+  if (B <= 0 || C <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      Hq / Hkv > 4 * dc::GPC_MAX || splits < 1 ||
+      splits > dc::CLUSTER_MAX || share <= 0 ||
+      (long long)splits * share < C)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* pp = static_cast<const int*>(pos_ptr);
   if (dtype == rt::kFloat32)
-    return launch<float>(q, k, v, out, pp, pos_val, B, C, Hq, Hkv, hd, window,
-                         scale, st);
+    return launch_hd<float>(q, k, v, out, pp, pos_val, B, C, Hq, Hkv, hd,
+                            window, splits, share, scale, st);
   if (dtype == rt::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, out, pp, pos_val, B, C, Hq, Hkv, hd,
-                                 window, scale, st);
+    return launch_hd<__nv_bfloat16>(q, k, v, out, pp, pos_val, B, C, Hq, Hkv,
+                                    hd, window, splits, share, scale, st);
   return (int)cudaErrorInvalidValue;
 }

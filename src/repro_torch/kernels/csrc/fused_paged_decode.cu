@@ -11,163 +11,140 @@
 //
 // Same contract as the TPU kernels — lengths count the valid tokens,
 // lengths == 0 (a dead slot) writes zeros, a sliding window keeps
-// tok >= len - window, the online softmax runs in fp32 from a finite
-// -1e30 start.
+// tok >= len - window, the softmax runs in fp32 from a finite -1e30
+// start.
 //
 // What bounds it on an H100: bytes. Each slot reads its live K/V rows
-// once (len * Hkv * hd * 2 * sizeof(T)) and does 4 * G * hd FLOP per row;
-// at the serving shapes (B=4, Hkv=16, hd=64, a few hundred tokens) that
-// is ~1 MB, well under a microsecond of HBM time, so in practice the
-// kernel is bound by latency: a chain of dependent page loads per CTA.
-// recurrentgemma's MQA (Hkv=1, G=10, hd=256) gives only B CTAs.
+// once (len * Hkv * hd * 2 * sizeof(T)) and does 4 * G * hd FLOP a row,
+// ~1 FLOP a byte. At the serving shapes (B=4, a few hundred tokens) that
+// is well under a microsecond of HBM time, so what sets the pace is
+// latency: how many CTAs walk how long a chain of dependent page loads.
+// One CTA per (kv head, slot) gave 64 CTAs for qwen (16 kv heads) and 4
+// for recurrentgemma's MQA on 132 SMs, each walking every page of its
+// slot one after another.
 //
-// Design: one CTA per (kv head, slot); the CTA reads its own length and
-// block-table entries (no scalar prefetch on this card) and walks only
-// the pages that hold live tokens. One warp per token row computes the
-// scores of all G query heads of the group from one load of the row, so
-// the G heads share every K/V page read. Masked rows are never loaded:
-// a NaN left in a recycled page cannot reach p * v. Per page, one thread
-// per head updates the running max and sum, then the CTA updates the
-// fp32 accumulator (kept in shared memory) with the page's V rows.
-#include "common.cuh"
+// Design (decode_core.cuh): the walk is split. A cluster of `splits` CTAs
+// per (kv head, slot), each taking a page-aligned share of the slot's
+// logical tokens (the wrapper's split plan, from static shapes only: one
+// wave of at most two CTAs an SM, 4 a pair for qwen, 16 for the MQA of
+// recurrentgemma, whose 10 query heads get 256 threads). A CTA reads its
+// share of the block table into shared memory once, then streams its
+// valid rows as 16-byte cp.async copies through a 3-tile ring (the next
+// tiles in flight while
+// one computes; a masked row is never read, so a NaN left in a recycled
+// page cannot reach p * v). Scores are taken per chunk of rows, with one
+// max and one rescale per chunk and head; m, l and the accumulator live
+// in registers. The cluster merges its partials through distributed
+// shared memory in rank order within the same launch: one launch a call,
+// no host sync, the same bits every run.
+#include "decode_core.cuh"
 
 namespace {
 
-constexpr int NT = 128;
+template <typename T, bool HAS_NEW>
+struct PagedRows {
+  const T* kp;            // pool rows of this kv head (offset hk * HD)
+  const T* vp;
+  const T* kn;            // the step's new K/V row of (slot, kv head)
+  const T* vn;
+  const int* tab;         // this CTA's block-table entries, from page0
+  int page0, ps, last;
+  size_t tok_stride;      // Hkv * HD
 
-template <typename T, int HD, bool HAS_NEW>
-__global__ void __launch_bounds__(NT) fused_paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_new,
+  __device__ __forceinline__ const T* k_base() const { return kp; }
+  __device__ __forceinline__ const T* v_base() const { return vp; }
+  __device__ __forceinline__ void at(int x, const T*& k, const T*& v) const {
+    if (HAS_NEW && x == last) {
+      k = kn;
+      v = vn;
+      return;
+    }
+    const int j = x / ps;
+    const size_t off =
+        ((size_t)tab[j - page0] * ps + (size_t)(x - j * ps)) * tok_stride;
+    k = kp + off;
+    v = vp + off;
+  }
+};
+
+template <typename T, int HD, int GPC, bool HAS_NEW>
+__global__ void __launch_bounds__(dc::block_threads(GPC))
+    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
     const T* __restrict__ v_new, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int* __restrict__ lengths,
     const int* __restrict__ block_tables, T* __restrict__ out, int Hq,
-    int Hkv, int ps, int nb, int window, float scale) {
-  constexpr int CPL = (HD + 31) / 32;     // dims per lane
-  extern __shared__ float sm[];
+    int Hkv, int ps, int nb, int window, int share, float scale2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hk = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
-  float* q_s = sm;                        // G * HD
-  float* acc = q_s + G * HD;              // G * HD
-  float* sc = acc + G * HD;               // G * ps scores, then weights
-  float* m_s = sc + G * ps;               // G
-  float* l_s = m_s + G;                   // G
-  float* a_s = l_s + G;                   // G
-
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
   const int len = lengths[b];
   T* ob = out + ((size_t)b * Hq + (size_t)hk * G) * HD;
-
-  if (len <= 0) {                         // dead slot
-    for (int i = tid; i < G * HD; i += blockDim.x) ob[i] = rt::from_float<T>(0.f);
+  if (len <= 0) {                          // dead slot: the whole cluster
+    dc::zero_slice(ob, G * HD);
     return;
   }
-  const T* qb = q + ((size_t)b * Hq + (size_t)hk * G) * HD;
-  for (int i = tid; i < G * HD; i += blockDim.x) {
-    q_s[i] = rt::to_float(qb[i]);
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += blockDim.x) {
-    m_s[g] = -1e30f;
-    l_s[g] = 0.f;
-  }
-  __syncthreads();
-
-  const int last = len - 1;               // the last valid token
   const int lo = window > 0 ? max(0, len - window) : 0;
-  const int j0 = lo / ps;
-  const int j1 = min(last / ps, nb - 1);
+  const int t0 = blockIdx.x * share;
+  const int a = max(t0, lo);
+  const int e = min(min(t0 + share, len), nb * ps);
+  int* tab = reinterpret_cast<int*>(smem + dc::RING_BYTES);
+  const int page0 = a / ps;
+  if (e > a)
+    for (int j = page0 + (int)threadIdx.x; j <= (e - 1) / ps;
+         j += blockDim.x)
+      tab[j - page0] = block_tables[(size_t)b * nb + j];
+  __syncthreads();
   const size_t tok_stride = (size_t)Hkv * HD;
-  const T* kn = HAS_NEW ? k_new + ((size_t)b * Hkv + hk) * HD : nullptr;
-  const T* vn = HAS_NEW ? v_new + ((size_t)b * Hkv + hk) * HD : nullptr;
+  const PagedRows<T, HAS_NEW> rows{
+      k_pages + (size_t)hk * HD, v_pages + (size_t)hk * HD,
+      HAS_NEW ? k_new + ((size_t)b * Hkv + hk) * HD : nullptr,
+      HAS_NEW ? v_new + ((size_t)b * Hkv + hk) * HD : nullptr,
+      tab, page0, ps, len - 1, tok_stride};
+  dc::walk_and_merge<T, HD, GPC>(rows,
+                                 q + ((size_t)b * Hq + (size_t)hk * G) * HD,
+                                 ob, G, a, e, scale2, smem);
+}
 
-  for (int j = j0; j <= j1; ++j) {
-    const size_t page = (size_t)block_tables[(size_t)b * nb + j];
-    const T* kp = k_pages + page * ps * tok_stride + (size_t)hk * HD;
-    const T* vp = v_pages + page * ps * tok_stride + (size_t)hk * HD;
+template <typename T, int HD, int GPC, bool HAS_NEW>
+int launch(const void* q, const void* kn, const void* vn, const void* kp,
+           const void* vp, const int* lens, const int* bt, void* out, int B,
+           int Hq, int Hkv, int ps, int nb, int window, int splits,
+           int share, float scale, cudaStream_t st) {
+  static int allowed[16] = {};
+  const size_t smem = dc::RING_BYTES + sizeof(int) * (size_t)(share / ps);
+  return dc::launch_clusters(
+      paged_decode_kernel<T, HD, GPC, HAS_NEW>, allowed,
+      dc::block_threads(GPC), splits, Hkv, B, smem, st,
+      static_cast<const T*>(q), static_cast<const T*>(kn),
+      static_cast<const T*>(vn), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), lens, bt, static_cast<T*>(out), Hq, Hkv,
+      ps, nb, window, share, scale * dc::LOG2E);
+}
 
-    for (int t = warp; t < ps; t += nw) {
-      const int tok = j * ps + t;
-      if (tok >= lo && tok <= last) {
-        const T* kr = HAS_NEW && tok == last ? kn
-                                             : kp + (size_t)t * tok_stride;
-        float kv[CPL];
-#pragma unroll
-        for (int i = 0; i < CPL; ++i) {
-          const int d = lane + 32 * i;
-          kv[i] = d < HD ? rt::to_float(kr[d]) : 0.f;
-        }
-        for (int g = 0; g < G; ++g) {
-          float part = 0.f;
-#pragma unroll
-          for (int i = 0; i < CPL; ++i) {
-            const int d = lane + 32 * i;
-            if (d < HD) part += q_s[g * HD + d] * kv[i];
-          }
-          part = rt::warp_sum(part);
-          if (lane == 0) sc[g * ps + t] = part * scale;
-        }
-      } else if (lane == 0) {
-        for (int g = 0; g < G; ++g) sc[g * ps + t] = -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    for (int g = tid; g < G; g += blockDim.x) {
-      float mx = m_s[g];
-      for (int t = 0; t < ps; ++t) mx = fmaxf(mx, sc[g * ps + t]);
-      const float alpha = expf(m_s[g] - mx);
-      float sum = 0.f;
-      for (int t = 0; t < ps; ++t) {
-        const float p = expf(sc[g * ps + t] - mx);   // masked: exactly 0
-        sc[g * ps + t] = p;
-        sum += p;
-      }
-      l_s[g] = l_s[g] * alpha + sum;
-      m_s[g] = mx;
-      a_s[g] = alpha;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * HD; i += blockDim.x) {
-      const int g = i / HD, d = i % HD;
-      float a = acc[i] * a_s[g];
-      for (int t = 0; t < ps; ++t) {
-        const int tok = j * ps + t;
-        if (tok < lo || tok > last) continue;        // never load masked rows
-        const T* vr = HAS_NEW && tok == last ? vn
-                                             : vp + (size_t)t * tok_stride;
-        a += sc[g * ps + t] * rt::to_float(vr[d]);
-      }
-      acc[i] = a;
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < G * HD; i += blockDim.x)
-    ob[i] = rt::from_float<T>(acc[i] / fmaxf(l_s[i / HD], 1e-30f));
+template <typename T, int HD, bool HAS_NEW>
+int launch_g(const void* q, const void* kn, const void* vn, const void* kp,
+             const void* vp, const int* lens, const int* bt, void* out,
+             int B, int Hq, int Hkv, int ps, int nb, int window, int splits,
+             int share, float scale, cudaStream_t st) {
+  if (Hq == Hkv)
+    return launch<T, HD, 1, HAS_NEW>(q, kn, vn, kp, vp, lens, bt, out, B, Hq,
+                                     Hkv, ps, nb, window, splits, share,
+                                     scale, st);
+  return launch<T, HD, dc::GPC_MAX, HAS_NEW>(q, kn, vn, kp, vp, lens, bt,
+                                             out, B, Hq, Hkv, ps, nb, window,
+                                             splits, share, scale, st);
 }
 
 template <typename T, bool HAS_NEW>
-int launch(const void* q, const void* kn, const void* vn, const void* kp,
-           const void* vp, const int* lens, const int* bt, void* out, int B,
-           int Hq, int Hkv, int hd, int ps, int nb, int window, float scale,
-           cudaStream_t st) {
-  const int G = Hq / Hkv;
-  // G * hd = 2560 (recurrentgemma, 10/1 at hd 256) needs ~21 KB
-  const size_t smem = sizeof(float) * ((size_t)2 * G * hd + (size_t)G * ps +
-                                       3 * (size_t)G);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const dim3 grid(Hkv, B);
+int launch_hd(const void* q, const void* kn, const void* vn, const void* kp,
+              const void* vp, const int* lens, const int* bt, void* out,
+              int B, int Hq, int Hkv, int hd, int ps, int nb, int window,
+              int splits, int share, float scale, cudaStream_t st) {
 #define RT_FD_CASE(HD_)                                                     \
   case HD_:                                                                 \
-    fused_paged_decode_kernel<T, HD_, HAS_NEW><<<grid, NT, smem, st>>>(     \
-        static_cast<const T*>(q), static_cast<const T*>(kn),                \
-        static_cast<const T*>(vn), static_cast<const T*>(kp),               \
-        static_cast<const T*>(vp), lens, bt, static_cast<T*>(out), Hq, Hkv, \
-        ps, nb, window, scale);                                             \
-    break;
+    return launch_g<T, HD_, HAS_NEW>(q, kn, vn, kp, vp, lens, bt, out, B,   \
+                                     Hq, Hkv, ps, nb, window, splits, share, \
+                                     scale, st);
   switch (hd) {
     RT_FD_CASE(16)
     RT_FD_CASE(32)
@@ -178,28 +155,32 @@ int launch(const void* q, const void* kn, const void* vn, const void* kp,
       return (int)cudaErrorInvalidValue;
   }
 #undef RT_FD_CASE
-  return (int)cudaGetLastError();
 }
 
 template <bool HAS_NEW>
 int dispatch(const void* q, const void* k_new, const void* v_new,
              const void* k_pages, const void* v_pages, const void* lengths,
              const void* block_tables, void* out, int dtype, int B, int Hq,
-             int Hkv, int hd, int ps, int nb, int window, float scale,
-             void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || ps <= 0 || nb <= 0)
+             int Hkv, int hd, int ps, int nb, int window, int splits,
+             int share, float scale, void* stream) {
+  // G <= GPC_MAX * 4 (four head groups at most); the split plan gives
+  // whole pages, at most CLUSTER_MAX CTAs a cluster
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > 4 * dc::GPC_MAX ||
+      ps <= 0 || nb <= 0 || splits < 1 || splits > dc::CLUSTER_MAX ||
+      share <= 0 || share % ps != 0 ||
+      (long long)splits * share < (long long)nb * ps)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(lengths);
   const int* bt = static_cast<const int*>(block_tables);
   if (dtype == rt::kFloat32)
-    return launch<float, HAS_NEW>(q, k_new, v_new, k_pages, v_pages, lens,
-                                  bt, out, B, Hq, Hkv, hd, ps, nb, window,
-                                  scale, st);
+    return launch_hd<float, HAS_NEW>(q, k_new, v_new, k_pages, v_pages, lens,
+                                     bt, out, B, Hq, Hkv, hd, ps, nb, window,
+                                     splits, share, scale, st);
   if (dtype == rt::kBFloat16)
-    return launch<__nv_bfloat16, HAS_NEW>(q, k_new, v_new, k_pages, v_pages,
-                                          lens, bt, out, B, Hq, Hkv, hd, ps,
-                                          nb, window, scale, st);
+    return launch_hd<__nv_bfloat16, HAS_NEW>(
+        q, k_new, v_new, k_pages, v_pages, lens, bt, out, B, Hq, Hkv, hd, ps,
+        nb, window, splits, share, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -209,19 +190,19 @@ extern "C" int fused_paged_decode_attention(
     const void* q, const void* k_new, const void* v_new, const void* k_pages,
     const void* v_pages, const void* lengths, const void* block_tables,
     void* out, int dtype, int B, int Hq, int Hkv, int hd, int ps, int nb,
-    int window, float scale, void* stream) {
+    int window, int splits, int share, float scale, void* stream) {
   return dispatch<true>(q, k_new, v_new, k_pages, v_pages, lengths,
                         block_tables, out, dtype, B, Hq, Hkv, hd, ps, nb,
-                        window, scale, stream);
+                        window, splits, share, scale, stream);
 }
 
 // lengths count the valid tokens, all of them in the pool
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* lengths, const void* block_tables, void* out, int dtype,
-    int B, int Hq, int Hkv, int hd, int ps, int nb, int window, float scale,
-    void* stream) {
+    int B, int Hq, int Hkv, int hd, int ps, int nb, int window, int splits,
+    int share, float scale, void* stream) {
   return dispatch<false>(q, nullptr, nullptr, k_pages, v_pages, lengths,
                          block_tables, out, dtype, B, Hq, Hkv, hd, ps, nb,
-                         window, scale, stream);
+                         window, splits, share, scale, stream);
 }

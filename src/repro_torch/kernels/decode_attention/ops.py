@@ -7,7 +7,15 @@ contracts of ``repro.kernels.decode_attention.ops``
 
 A CUDA tensor launches ``csrc/decode_attention.cu`` /
 ``csrc/fused_paged_decode.cu`` / ``csrc/sample_tokens.cu`` on the
-current stream; a CPU tensor runs the plain version in ``ref.py``."""
+current stream; a CPU tensor runs the plain version in ``ref.py``.
+
+The three attention kernels split each (slot, kv head)'s walk over a
+thread block cluster of CTAs and merge the partials inside the same
+launch; :func:`split_plan` picks the split from static shapes and the
+card's SM count only — never from ``lengths`` or ``pos``, which stay on
+the device."""
+import functools
+
 import torch
 
 from repro_torch.kernels import common
@@ -19,9 +27,51 @@ RING = "decode_attention"
 DECODE = "fused_paged_decode"
 PAGED = "paged_decode_attention"
 SAMPLE = "sample_tokens"
-HEAD_DIMS = (16, 32, 64, 128, 256)          # paged kernels
-RING_HEAD_DIMS = (16, 32, 64, 128)
-RING_GROUPS = (1, 2, 4, 8)
+HEAD_DIMS = (16, 32, 64, 128, 256)     # hd the three attention kernels take
+GROUPS = tuple(range(1, 17))           # and Hq / Hkv
+CLUSTER_MAX = 16           # CTAs a cluster (non-portable above 8: Hopper)
+
+
+def split_share(rows, splits, unit=1):
+    """(splits used, share): CTA r of a cluster takes the logical rows
+    ``[r * share, (r + 1) * share)`` of ``[0, rows)``; ``share`` is a
+    multiple of ``unit`` (a page) and no CTA gets an empty share."""
+    units = common.cdiv(rows, unit)
+    per = common.cdiv(units, max(1, min(splits, units)))
+    return common.cdiv(units, per), per * unit
+
+
+def split_plan(B, Hkv, rows, sm_count, unit=1):
+    """The split walk's plan from static shapes only: the most splits (a
+    power of two, at most :data:`CLUSTER_MAX`, at most one a ``unit``)
+    that keep the grid to one wave of two CTAs on each of ``sm_count``
+    SMs, then :func:`split_share`. More CTAs than fit at once (on an
+    H100 only 62 clusters of 8 do) run as a second wave. ``rows`` is
+    ``nb * ps`` (paged, ``unit = ps``) or the ring capacity C."""
+    units = common.cdiv(rows, unit)
+    splits = 1
+    while (splits < CLUSTER_MAX and splits < units
+           and B * Hkv * (2 * splits) <= 2 * sm_count):   # doubled: fits
+        splits *= 2
+    return split_share(rows, splits, unit)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check_kernel_shape(hd, Hq, Hkv):
+    common.require(hd in HEAD_DIMS,
+                   f"kernel takes hd in {HEAD_DIMS}, got {hd}")
+    common.require(Hq // Hkv in GROUPS,
+                   f"kernel takes Hq/Hkv in {GROUPS}, got {Hq // Hkv}")
+
+
+def _check_aligned(**tensors):
+    for name, t in tensors.items():
+        common.require(t.data_ptr() % 16 == 0,
+                       f"{name} must be 16-byte aligned")
 
 
 def decode_attention_op(q, k_cache, v_cache, pos, *, window=0,
@@ -54,27 +104,33 @@ def decode_attention_op(q, k_cache, v_cache, pos, *, window=0,
     if cpu:
         return decode_attention_ref(q, k_cache, v_cache, pos, window=window)
     _, C, Hkv, _ = k_cache.shape
-    require(hd in RING_HEAD_DIMS,
-            f"kernel takes hd in {RING_HEAD_DIMS}, got {hd}")
-    require(Hq // Hkv in RING_GROUPS,
-            f"kernel takes Hq/Hkv in {RING_GROUPS}, got {Hq // Hkv}")
+    _check_kernel_shape(hd, Hq, Hkv)
     common.check_contiguous(q=q, k_cache=k_cache, v_cache=v_cache)
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+    _check_aligned(q=q, k_cache=k_cache, v_cache=v_cache)
     if on_dev:
         require(pos.dtype == torch.int32, "pos tensor must be int32")
         pos_ptr, pos_val = pos.data_ptr(), 0
     else:
         require(int(pos) >= 0, f"pos must be >= 0, got {pos}")
         pos_ptr, pos_val = None, int(pos)
+    splits, share = split_plan(B, Hkv, C, _sm_count(q.device))
     out = torch.empty_like(q)
-    fn = common.entry(RING, "decode_attention", "pppppiiiiiiiifp")
+    fn = common.entry(RING, "decode_attention", "pppppiiiiiiiiiifp")
     code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
               out.data_ptr(), pos_ptr, pos_val, common.dtype_code(q), B, C,
-              Hq, Hkv, hd, int(window), hd ** -0.5, common.stream_of(q))
+              Hq, Hkv, hd, int(window), splits, share, hd ** -0.5,
+              common.stream_of(q))
     common.check(code, "decode_attention")
     common.LAUNCHES[RING] += 1
     return out
+
+
+def _check_paged_kernel(q, Hkv, lengths, block_tables):
+    require = common.require
+    _check_kernel_shape(q.shape[3], q.shape[2], Hkv)
+    require(lengths.dtype == torch.int32
+            and block_tables.dtype == torch.int32,
+            "lengths and block_tables must be int32")
 
 
 def _paged_decode_op(q, k_pages, v_pages, lengths, block_tables, window):
@@ -91,19 +147,18 @@ def _paged_decode_op(q, k_pages, v_pages, lengths, block_tables, window):
     if common.on_cpu(q, k_pages, v_pages, lengths, block_tables):
         return paged_decode_attention_ref(q, k_pages, v_pages, lengths,
                                           block_tables, window=window)
-    require(hd in HEAD_DIMS, f"kernel takes hd in {HEAD_DIMS}, got {hd}")
-    require(lengths.dtype == torch.int32
-            and block_tables.dtype == torch.int32,
-            "lengths and block_tables must be int32")
+    _check_paged_kernel(q, Hkv, lengths, block_tables)
     common.check_contiguous(q=q, k_pages=k_pages, v_pages=v_pages,
                             lengths=lengths, block_tables=block_tables)
+    _check_aligned(q=q, k_pages=k_pages, v_pages=v_pages)
+    nb = block_tables.shape[1]
+    splits, share = split_plan(B, Hkv, nb * ps, _sm_count(q.device), ps)
     out = torch.empty_like(q)
-    fn = common.entry(DECODE, "paged_decode_attention", "ppppppiiiiiiiifp")
+    fn = common.entry(DECODE, "paged_decode_attention", "ppppppiiiiiiiiiifp")
     code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
               lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-              common.dtype_code(q), B, Hq, Hkv, hd, ps,
-              block_tables.shape[1], int(window), hd ** -0.5,
-              common.stream_of(q))
+              common.dtype_code(q), B, Hq, Hkv, hd, ps, nb, int(window),
+              splits, share, hd ** -0.5, common.stream_of(q))
     common.check(code, "paged_decode_attention")
     common.LAUNCHES[PAGED] += 1
     return out
@@ -131,20 +186,21 @@ def fused_decode_step_op(q, k_new, v_new, k_pages, v_pages, lengths,
                      block_tables):
         return fused_paged_decode_ref(q, k_new, v_new, k_pages, v_pages,
                                       lengths, block_tables, window=window)
-    require(hd in HEAD_DIMS, f"kernel takes hd in {HEAD_DIMS}, got {hd}")
-    require(lengths.dtype == torch.int32
-            and block_tables.dtype == torch.int32,
-            "lengths and block_tables must be int32")
+    _check_paged_kernel(q, Hkv, lengths, block_tables)
     common.check_contiguous(q=q, k_new=k_new, v_new=v_new, k_pages=k_pages,
                             v_pages=v_pages, lengths=lengths,
                             block_tables=block_tables)
+    _check_aligned(q=q, k_new=k_new, v_new=v_new, k_pages=k_pages,
+                   v_pages=v_pages)
+    nb = block_tables.shape[1]
+    splits, share = split_plan(B, Hkv, nb * ps, _sm_count(q.device), ps)
     out = torch.empty_like(q)
     fn = common.entry(DECODE, "fused_paged_decode_attention",
-                      "ppppppppiiiiiiiifp")
+                      "ppppppppiiiiiiiiiifp")
     code = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
               k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
               block_tables.data_ptr(), out.data_ptr(), common.dtype_code(q),
-              B, Hq, Hkv, hd, ps, block_tables.shape[1], int(window),
+              B, Hq, Hkv, hd, ps, nb, int(window), splits, share,
               hd ** -0.5, common.stream_of(q))
     common.check(code, "fused_paged_decode_attention")
     common.LAUNCHES[DECODE] += 1
