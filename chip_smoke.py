@@ -9,27 +9,32 @@ Phases, each printing its lines and raising on any failure:
    versions, the time to build the kernels from ``kernels/csrc`` (one
    nvcc per source, all started together), every kernel's registers and
    spills (ptxas ``-v``; one line a kernel for the sources redesigned for
-   Hopper) and the tensor-core instructions in the SASS of matmul and
-   flash (wgmma with TMA or cp.async);
+   Hopper, vecadd and the WKV among them) and the tensor-core
+   instructions in the SASS of matmul and flash (wgmma with TMA or
+   cp.async);
 2. kernels — every hand-written kernel against its plain PyTorch
    version on the card, each against a stated tolerance: flash, fused
    paged decode and the sampler at the serving path's shapes (G > 1, a
    dead slot, NaN-poisoned masked rows, a cross-block tie), flash at its
    q-tile edges (S = 1, 63, 64, 65) and at B=4 S=4096, and at
-   recurrentgemma's hd=256, Hq/Hkv 10/1 with windows; ring-cache decode
+   recurrentgemma's hd=256, Hq/Hkv 10/1 with windows, and at the head
+   dims of phi3-mini (hd 96, 32/32) and kimi-k2 (hd 112, 64/8), bf16 and
+   fp32, S = 1, 65, 130, causal and windowed; ring-cache decode
    at C=4096 (partly filled, wrapped, windowed, fewer valid slots than
    splits, a wrap inside a share and on a split edge, a window emptying
    shares, NaN in invalid slots, ``pos`` on the device) at every head dim
    and at Hq/Hkv up to 16, hd 256 10/1 with window 2048 among them;
    matmul at ragged, padded (N % 8 != 0), K % 64 != 0 and card shapes,
    Sobel and vecadd at ragged and card shapes; the RG-LRU scan and the
-   RWKV-6 WKV at ragged, serving and B=4 S=4096 shapes (plus an extreme
-   decay); the no-new-token paged decode with a dead slot and
-   NaN-poisoned rows; the split walk's edges of the fused and paged
-   decode (dead slot, length 1, full table, a length on a split edge, a
-   window emptying splits) at every head dim and G = 1, 3, 16, clean and
-   NaN-poisoned; bit-equal reruns of the three decode kernels, and one
-   launch and no host sync a call;
+   RWKV-6 WKV (the chunked form: K 16 to 128, ragged tails, rwkv6-7b's
+   prefill and chunked-prefill calls, B=4 S=4096) plus an extreme decay
+   and a chunk mixing decays of -50 and ~-1e-3; the no-new-token paged
+   decode with a dead slot and NaN-poisoned rows; the split walk's edges
+   of the fused and paged decode (dead slot, length 1, full table, a
+   length on a split edge, a window emptying splits) at every head dim
+   and G = 1, 3, 16, clean and NaN-poisoned; bit-equal reruns of the
+   three decode kernels, and one launch and no host sync a call for them
+   and the WKV;
 3. serve, monolithic — full-width ``qwen1.5-0.5b`` (random weights from
    a fixed seed) through ``ServeEngine``: 8 requests, batch 4, prompts of
    32–130 tokens, 32 new tokens each, capacity 256, 16-token pages;
@@ -62,17 +67,20 @@ Phases, each printing its lines and raising on any failure:
    kernel its device time (torch.profiler/CUPTI; the per-call CUDA-event
    time is printed beside it), its plain version's, one PyTorch call
    computing the same function (``library_ms``, a yardstick the port
-   never calls; none for the two recurrences), the bound, and the
-   achieved TFLOP/s and share of the bound; flash also at B=4 S=4096 and
-   at hd 256 S=2500 with window 2048; fused decode also at a long
+   never calls; none for the two recurrences; vecadd and ``torch.add``
+   timed in turns), the bound, and the achieved TFLOP/s and share of the
+   bound; the WKV also at one chunked-prefill call (S=32); flash also at
+   B=4 S=4096 and at hd 256 S=2500 with window 2048; fused decode also
+   at a long
    context (nb=160, lengths up to 2560) at hd 64 16/16 and hd 256 10/1
    with window 2048.
 
 On every path, the launch counters are set to 0 just before it runs and
 read just after; each kernel of the path must have launched.
-``--profile`` adds a torch.profiler pass over steady decode steps of
-both serving modes of every served model (device busy share, top
-device-time entries).
+``--profile`` adds a torch.profiler pass over the prefill of four
+requests and over steady decode steps, in both serving modes of every
+served model (device busy share, top device-time entries and their
+shares).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -80,6 +88,7 @@ repository's ``src/``, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -252,7 +261,7 @@ TENSOR_CORE_SASS = {"matmul": ("HGMMA", "UTMALDG"),
                     "flash_attention": ("HGMMA", "LDGSTS")}
 #: the sources redesigned for Hopper, whose every kernel gets a line
 REDESIGNED = ("matmul", "flash_attention", "fused_paged_decode",
-              "decode_attention")
+              "decode_attention", "vecadd", "rwkv6_wkv")
 
 
 def report_build(common):
@@ -381,6 +390,7 @@ def check_kernels(device, errs):
                             BF16_ULP_RTOL)
         errs["flash_attention"] = max(errs["flash_attention"], err)
         del q, k, v
+    check_flash_head_dims(device, errs)
 
     lens = [37, 0, 129, 256]                  # slot 1 dead; 256 = full table
     for Hq, Hkv, window, dt, nan in ((16, 16, 0, bf16, False),
@@ -432,6 +442,38 @@ def check_kernels(device, errs):
     check_recurrent_kernels(device, errs)
     check_split_edges(device, errs)
     check_one_launch(device)
+
+
+#: the head dims of the repo's configurations beyond the served ones:
+#: phi3-mini's hd 96 (32/32 heads) and kimi-k2's hd 112 (64/8)
+EXTRA_HEAD_DIMS = ((96, 32, 32), (112, 64, 8))
+
+
+def check_flash_head_dims(device, errs):
+    """Flash at ``EXTRA_HEAD_DIMS`` (hd padded with zero columns to whole
+    64-column tiles in the bf16 instance): S = 1, 65 and 130, causal and
+    with window 48; bf16 within two ulps of the plain version, fp32 at
+    2e-5."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    for hd, Hq, Hkv in EXTRA_HEAD_DIMS:
+        for S, window, dt in itertools.product(
+                (1, 65, 130), (0, 48), (torch.bfloat16, torch.float32)):
+            q, k, v = flash_inputs(S, Hq, Hkv, dt, device,
+                                   seed=S + hd + window, hd=hd)
+            got = flash_attention_op(q, k, v, window=window)
+            want = flash_attention_ref(q, k, v, window=window)
+            dn = str(dt).replace("torch.", "")
+            what = (f"B=1 S={S} Hq={Hq} Hkv={Hkv} hd={hd} window={window} "
+                    f"{dn}")
+            if dt == torch.float32:
+                _expect("flash_attention", what, _max_err(got, want),
+                        TOL[dn])
+            else:
+                err = _expect_close("flash_attention", what, got, want,
+                                    BF16_ULP_ATOL, BF16_ULP_RTOL)
+                errs["flash_attention"] = max(errs["flash_attention"], err)
 
 
 #: the split walk's edges at nb=16, ps=16 (4 CTAs a (slot, kv head) of
@@ -494,7 +536,8 @@ def check_split_edges(device, errs):
     for new, name in ((True, "fused_paged_decode"),
                       (False, "paged_decode_attention")):
         for hd, (Hq, Hkv), dt in itertools.product(
-                (16, 32, 64, 128, 256), ((16, 16), (12, 4), (16, 1)),
+                (16, 32, 64, 96, 112, 128, 256),
+                ((16, 16), (12, 4), (16, 1)),
                 (torch.bfloat16, torch.float32)):
             worst, runs = 0.0, 0
             for lens, window in itertools.product(SPLIT_EDGE_LENS, (0, 40)):
@@ -526,24 +569,28 @@ def check_split_edges(device, errs):
 
 
 def check_one_launch(device):
-    """Each call of the three decode-attention ops is one launch of its
-    kernel (the wrapper's counter and the profiler's kernel count) and
-    makes no host sync (``torch.cuda.set_sync_debug_mode("error")``)."""
+    """Each call of the three decode-attention ops and of the WKV is one
+    launch of its kernel (the wrapper's counter and the profiler's kernel
+    count) and makes no host sync
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import common
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention_op, fused_decode_step_op)
+    from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv_op
     d = decode_inputs([64, 161, 96, 143], 16, 16, torch.bfloat16, device,
                       seed=4)
     q, k, v = ring_inputs(4, 4096, 16, 16, torch.bfloat16, device, seed=8)
     pos = torch.tensor(5000, dtype=torch.int32, device=device)
+    wkv = wkv_inputs(1, 64, 130, 64, device, seed=9)
     calls = {
         "fused_paged_decode": lambda: fused_decode_step_op(**d),
         "paged_decode_attention": lambda: decode_attention_op(
             d["q"], d["k_pages"], d["v_pages"], d["lengths"],
             block_tables=d["block_tables"]),
-        "decode_attention": lambda: decode_attention_op(q, k, v, pos)}
+        "decode_attention": lambda: decode_attention_op(q, k, v, pos),
+        "rwkv6_wkv": lambda: rwkv6_wkv_op(*wkv)}
     reps = 20
     for name, fn in calls.items():
         fn()
@@ -598,7 +645,7 @@ RING_CASES = ((100, 0, False), (4200, 0, True), (4200, 64, False),
 #: hd 256 MQA with window 2048, and the rest of the kernel's coverage
 RING_SHAPES = ((16, 16, 64, None), (16, 8, 64, None), (8, 1, 64, None),
                (10, 1, 256, 2048), (16, 1, 128, None), (12, 4, 32, None),
-               (16, 16, 16, None))
+               (16, 16, 16, None), (32, 32, 96, None), (64, 8, 112, 600))
 
 
 def check_ring_decode(device, errs):
@@ -728,6 +775,15 @@ def wkv_inputs(B, H, S, K, device, seed):
             -torch.exp(rn(B, H, S, K)), rn(H, K), rn(B, H, K, K))
 
 
+#: (B, H, S, K) of the WKV checks: ragged tails at every K the kernel
+#: takes besides 64, rwkv6-7b's prefill (S = 130) and chunked-prefill
+#: call (S = 32), B=4
+WKV_SHAPES = ((1, 3, 45, 16), (2, 2, 70, 32), (1, 3, 45, 48),
+              (1, 2, 70, 80), (1, 3, 77, 96), (1, 4, 130, 112),
+              (1, 4, 130, 128), (1, 64, 32, 64), (1, 64, 130, 64),
+              (4, 64, 4096, 64))
+
+
 def check_recurrent_kernels(device, errs):
     """The recurrent families' kernels and the attention kernels at their
     shapes: the RG-LRU scan (fp32, tol 2e-5) at a ragged shape, the
@@ -756,7 +812,9 @@ def check_recurrent_kernels(device, errs):
                                rglru_scan_ref(a, b, h0)), TOL["float32"])
         errs["rglru_scan"] = max(errs.get("rglru_scan", 0), err)
 
-    for B, H, S, K in ((2, 2, 70, 32), (1, 64, 130, 64), (4, 64, 4096, 64)):
+    # the chunked kernel: ragged tails, every K from 16 to 128, the serving
+    # shapes (monolithic 130, one chunked-prefill call of 32) and B=4
+    for B, H, S, K in WKV_SHAPES:
         ins = wkv_inputs(B, H, S, K, device, seed=S + K)
         o, sf = rwkv6_wkv_op(*ins)
         o_ref, sf_ref = rwkv6_wkv_ref(*ins)
@@ -779,6 +837,22 @@ def check_recurrent_kernels(device, errs):
         f"{'ok' if finite and gone else 'FAIL'}")
     if not (finite and gone):
         raise AssertionError("rwkv6_wkv: extreme decay not safe")
+    # one chunk mixing decays of -50 (a factor e^-50 a token) with ~-1e-3
+    # channel by channel and token by token
+    for K in (64, 128):
+        r, k, v, _, u, s0 = wkv_inputs(2, 3, 77, K, device, seed=K)
+        fast = torch.rand(r.shape, generator=torch.Generator(
+            device=device).manual_seed(K), device=device) < 0.5
+        logw = torch.where(fast, torch.full_like(r, -50.0),
+                           torch.full_like(r, -1e-3))
+        o, sf = rwkv6_wkv_op(r, k, v, logw, u, s0)
+        o_ref, sf_ref = rwkv6_wkv_ref(r, k, v, logw, u, s0)
+        what = f"B=2 H=3 S=77 K={K} logw mixed -50 / -1e-3 float32"
+        err = max(_expect_close("rwkv6_wkv", what + " o", o, o_ref, 2e-3,
+                                2e-3),
+                  _expect_close("rwkv6_wkv", what + " s_final", sf, sf_ref,
+                                2e-3, 2e-3))
+        errs["rwkv6_wkv"] = max(errs["rwkv6_wkv"], err)
 
     lens = [37, 0, 129, 256]                  # slot 1 dead; 256 = full table
     for Hq, Hkv, hd, window, dt in ((16, 16, 64, 0, torch.bfloat16),
@@ -1201,11 +1275,24 @@ def apps_phase(device, launches):
     return out
 
 
+def log_profile(name, what, prof, wall_us, top=12):
+    """Device busy time and idle share of a profiled window, and its top
+    device-time entries with their share of the busy time."""
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    log(f"[profile:{name}] {what}: wall {wall_us / 1e3:.3f} ms, device "
+        f"busy {busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}")
+    for dev, count, key in rows[:top]:
+        log(f"[profile:{name}]   {dev / 1e3:9.3f} ms  x{count:<5d} "
+            f"{100 * dev / busy:5.1f}%  {key[:80]}")
+
+
 def profile_phase(mode, cfg, model, params, requests, n_steps=8,
                   name=None, engine_kw=None):
-    """torch.profiler over ``n_steps`` steady decode steps (every slot
-    decoding, no admission in the window): device busy share and the
-    top device-time entries."""
+    """torch.profiler over the admission and prefill of four requests,
+    then over ``n_steps`` steady decode steps (every slot decoding, no
+    admission in the window): device busy share and the top device-time
+    entries of each window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import ServeEngine
@@ -1215,8 +1302,18 @@ def profile_phase(mode, cfg, model, params, requests, n_steps=8,
                       **(engine_kw or {}))
     for p, _, t in requests[:4]:
         eng.submit(p, max_new_tokens=n_steps + 16, temperature=t)
-    while (eng.positions < 0).any() or eng.waiting:
-        eng.step(params)                  # admit and prefill all four
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps = 0
+        while (eng.positions < 0).any() or eng.waiting:
+            eng.step(params)              # admit and prefill all four
+            steps += 1
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    log_profile(name, f"admission and prefill of 4 requests ({steps} "
+                "steps)", prof, wall_us)
     eng.step(params)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1226,15 +1323,8 @@ def profile_phase(mode, cfg, model, params, requests, n_steps=8,
             eng.step(params)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = device_rows(prof)
-    busy = sum(r[0] for r in rows)
-    log(f"[profile:{name}] {n_steps} decode steps, B=4: wall "
-        f"{wall_us / 1e3:.3f} ms ({wall_us / 1e3 / n_steps:.3f} ms/step), "
-        f"device busy {busy / 1e3:.3f} ms, idle share "
-        f"{1 - busy / wall_us:.3f}")
-    for dev, count, key in rows[:12]:
-        log(f"[profile:{name}]   {dev / 1e3:9.3f} ms  x{count:<5d} "
-            f"{key[:90]}")
+    log_profile(name, f"{n_steps} decode steps, B=4 "
+                f"({wall_us / 1e3 / n_steps:.3f} ms/step)", prof, wall_us)
 
 
 # ---------------------------------------------------------------------------
@@ -1577,15 +1667,24 @@ def time_new_kernels(device):
         "library_ms": timed(conv_hypot),
         **bnd}
 
-    # vecadd 2^26 fp32
+    # vecadd 2^26 fp32, timed in turns with torch.add (kernel, add, add,
+    # kernel, twice): the row keeps the median of each side's four
     n = 1 << 26
     x, y = rn(n), rn(n)
     bnd = bound(3 * n * 4, n, FP32_FLOPS)
+    calls = {"kernel": lambda: vecadd_op(x, y),
+             "add": lambda: torch.add(x, y)}
+    order = ("kernel", "add", "add", "kernel") * 2
+    turns = [(w, timed(calls[w])) for w in order]
+    log("[time] vecadd vs torch.add in turns, device ms (event ms): "
+        + ", ".join(f"{w} {t[0]:.4f} ({t[1]:.4f})" for w, t in turns))
+    med = lambda w: tuple(statistics.median(t[i] for v, t in turns  # noqa
+                                            if v == w) for i in (0, 1))
     out["vecadd"] = {
         "shape": f"n={n} float32",
-        "ms": timed(lambda: vecadd_op(x, y)),
+        "ms": med("kernel"),
         "plain_ms": timed(lambda: vecadd_ref(x, y)),
-        "library_ms": timed(lambda: torch.add(x, y)),
+        "library_ms": med("add"),
         **bnd}
     return out
 
@@ -1595,7 +1694,8 @@ def time_recurrent_kernels(device):
     rows) and at B=4, S=4096 (printed; their plain versions loop over
     4096 tokens, so two calls are timed), the no-new-token paged decode
     at the fused row's shapes, and flash / fused decode at
-    recurrentgemma's hd=256, Hq/Hkv 10/1, window 2048 (printed)."""
+    recurrentgemma's hd=256, Hq/Hkv 10/1, window 2048, and at hd 96 and
+    112 beside hd 128 (printed)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
@@ -1622,6 +1722,7 @@ def time_recurrent_kernels(device):
                               *((2, 1) if big else ())),
             "library_ms": None, **bnd}
     for name, (B, H, S, K) in (("rwkv6_wkv", (1, 64, 130, 64)),
+                               ("rwkv6_wkv@S32", (1, 64, 32, 64)),
                                ("rwkv6_wkv@B4S4096", (4, 64, 4096, 64))):
         ins = wkv_inputs(B, H, S, K, device, seed=2)
         n, st = B * H * S * K, B * H * K * K
@@ -1734,6 +1835,35 @@ def time_recurrent_kernels(device):
         "plain_ms": timed(lambda: fused_paged_decode_ref(**d, window=2048)),
         "library_ms": timed(lambda: gather_sdpa(d, True, 2048)),
         **bnd}
+    # the head dims of phi3-mini (hd 96) and kimi-k2 (hd 112) beside hd
+    # 128 at the same heads: flash at B=1 S=130, fused decode at the
+    # mid-run lengths (printed)
+    for hd, Hq, Hkv in ((96, 32, 32), (128, 32, 32), (112, 64, 8),
+                        (128, 64, 8)):
+        q, k, v = flash_inputs(130, Hq, Hkv, torch.bfloat16, device,
+                               seed=hd, hd=hd)
+        qt = q.transpose(1, 2)
+        kt = k.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+        vt = v.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+        pairs = 130 * 131 // 2
+        out[f"flash_attention_hd{hd}_{Hq}/{Hkv}"] = {
+            "shape": f"B=1 S=130 Hq={Hq} Hkv={Hkv} hd={hd} bf16 causal",
+            "ms": timed(lambda: flash_attention_op(q, k, v)),
+            "plain_ms": timed(lambda: flash_attention_ref(q, k, v)),
+            "library_ms": timed(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)),
+            **bound((2 * 130 * Hq * hd + 2 * 130 * Hkv * hd) * 2,
+                    Hq * pairs * 4 * hd, BF16_FLOPS)}
+        d = decode_inputs(lens, Hq, Hkv, torch.bfloat16, device, seed=hd,
+                          hd=hd)
+        out[f"fused_paged_decode_hd{hd}_{Hq}/{Hkv}"] = {
+            "shape": f"B=4 Hq={Hq} Hkv={Hkv} hd={hd} ps=16 nb=16 "
+                     f"lens={lens} bf16",
+            "ms": timed(lambda: fused_decode_step_op(**d)),
+            "plain_ms": timed(lambda: fused_paged_decode_ref(**d)),
+            "library_ms": timed(lambda: gather_sdpa(d, True)),
+            **decode_bound(d, True)}
+        del q, k, v, qt, kt, vt, d
     # a long context, where bytes and not latency should set the pace
     lens = [640, 2560, 1601, 2143]
     for name, Hq, Hkv, hd, window in (

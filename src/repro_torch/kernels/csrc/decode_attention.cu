@@ -6,7 +6,7 @@
 // A slot is valid if slot <= pos or the ring is full (pos >= C); with a
 // window, only slots whose ring age (pos%C - slot) mod C is < window.
 // Softmax is fp32 from a finite -1e30 start; the output is written in the
-// input dtype. hd in {16, 32, 64, 128, 256}, Hq / Hkv up to 16.
+// input dtype. hd in {16, 32, 64, 96, 112, 128, 256}, Hq / Hkv up to 16.
 //
 // The valid slots are always the last n = min(pos+1, C[, window]) slots
 // in ring order, ending at pos % C: logical row j in [0, n) is slot
@@ -122,6 +122,8 @@ int launch_hd(const void* q, const void* k, const void* v, void* out,
     RT_RD_CASE(16)
     RT_RD_CASE(32)
     RT_RD_CASE(64)
+    RT_RD_CASE(96)
+    RT_RD_CASE(112)
     RT_RD_CASE(128)
     RT_RD_CASE(256)
     default:

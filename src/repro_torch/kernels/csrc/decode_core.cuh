@@ -55,21 +55,35 @@ __host__ __device__ constexpr int block_threads(int gpc) {
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
+__host__ __device__ constexpr int pow2_ceil(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+// The lanes see a row as HP = pow2_ceil(HD) dims, so a row's lanes divide
+// a warp: at hd 96 and 112 (HP 128) the lanes past hd (LIVE and up) hold
+// zeros and read and write nothing. A tile holds TR whole rows, HD apart
+// in shared memory: the most that fit in TILE_BYTES, a multiple of the
+// channel count (at 128 threads: 40 and 32 rows at hd 96 and 112 in bf16,
+// 20 and 16 in fp32).
 template <typename T, int HD, int NT>
 struct Shape {
   static constexpr int NW = NT / 32;
   static constexpr int ES = sizeof(T);
   static constexpr int VEC = 16 / ES;                        // per 16 B
-  static constexpr int DPL = VEC > HD / 32 ? VEC : HD / 32;  // dims a lane
-  static constexpr int LPT = HD / DPL;                       // lanes a row
+  static constexpr int HP = pow2_ceil(HD);
+  static constexpr int DPL = VEC > HP / 32 ? VEC : HP / 32;  // dims a lane
+  static constexpr int LPT = HP / DPL;                       // lanes a row
+  static constexpr int LIVE = HD / DPL;                      // ... with dims
   static constexpr int SUB = 32 / LPT;                       // rows a warp
   static constexpr int NCH = NW * SUB;                       // channels
-  static constexpr int TR = TILE_BYTES / (HD * ES);          // rows a tile
+  static constexpr int TR = TILE_BYTES / (HD * ES) / NCH * NCH;  // rows a tile
   static constexpr int RC = TR / NCH;                        // rows a chunk
   static constexpr int VPR = HD / VEC;                       // vectors a row
-  static constexpr int VPT = TR * VPR / NT;                  // a thread's
-  static_assert(32 % LPT == 0 && RC >= 1 && TR % NCH == 0 &&
-                    TR * VPR % NT == 0 && NCH >= GPC_MAX,
+  static constexpr int VPT = (TR * VPR + NT - 1) / NT;       // a thread's
+  static_assert(HD % DPL == 0 && 32 % LPT == 0 && RC >= 1 &&
+                    NCH >= GPC_MAX,
                 "unsupported head dim");
 };
 
@@ -103,6 +117,18 @@ __device__ __forceinline__ void load_f(const T* p, float (&dst)[N]) {
   }
 }
 
+// a lane's DPL dims of a shared-memory row, or zeros on a lane past hd
+template <typename T, int N>
+__device__ __forceinline__ void load_row(const T* p, bool live,
+                                         float (&dst)[N]) {
+  if (live) {
+    load_f<T, N>(p, dst);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[i] = 0.f;
+  }
+}
+
 // a dead slot: every CTA of the cluster writes its slice of zeros and
 // leaves before any cluster barrier
 template <typename T>
@@ -127,6 +153,7 @@ __device__ __forceinline__ void walk_and_merge(const Rows& rows,
   using S = Shape<T, HD, NT>;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int li = lane % S::LPT;
+  const bool live = li < S::LIVE;          // false only past hd 96 / 112
   const int ch = warp * S::SUB + lane / S::LPT;
   int HG = 1;                              // head groups: HG * GPC >= G
   while (HG * GPC < G) HG <<= 1;
@@ -137,7 +164,7 @@ __device__ __forceinline__ void walk_and_merge(const Rows& rows,
 #pragma unroll
   for (int i = 0; i < GPC; ++i) {
     const int g = hg + i * HG;
-    if (g < G) {
+    if (g < G && live) {
       load_f<T, S::DPL>(qb + g * HD + li * S::DPL, q[i]);
     } else {
 #pragma unroll
@@ -161,6 +188,7 @@ __device__ __forceinline__ void walk_and_merge(const Rows& rows,
 #pragma unroll
       for (int j = 0; j < S::VPT; ++j) {
         const int v = tid + j * NT;
+        if (S::TR * S::VPR % NT != 0 && v >= S::TR * S::VPR) break;
         const int r = v / S::VPR, c = (v % S::VPR) * S::VEC;
         const int x = a + t * S::TR + r;
         const bool ok = x < e;
@@ -193,7 +221,7 @@ __device__ __forceinline__ void walk_and_merge(const Rows& rows,
       for (int k = 0; k < S::RC; ++k) {
         const int r = r0 + rp + k * RP;
         float kv[S::DPL];
-        load_f<T, S::DPL>(kt + r * HD + li * S::DPL, kv);
+        load_row(kt + r * HD + li * S::DPL, live, kv);
 #pragma unroll
         for (int i = 0; i < GPC; ++i) {
           float part = 0.f;
@@ -226,7 +254,7 @@ __device__ __forceinline__ void walk_and_merge(const Rows& rows,
       for (int k = 0; k < S::RC; ++k) {
         const int r = r0 + rp + k * RP;
         float vv[S::DPL];
-        load_f<T, S::DPL>(vt + r * HD + li * S::DPL, vv);
+        load_row(vt + r * HD + li * S::DPL, live, vv);
 #pragma unroll
         for (int i = 0; i < GPC; ++i)
 #pragma unroll
@@ -252,9 +280,10 @@ __device__ __forceinline__ void walk_and_merge(const Rows& rows,
   for (int i = 0; i < GPC; ++i) {
     const int g = hg + i * HG;
     if (g < G) {
+      if (live)
 #pragma unroll
-      for (int d = 0; d < S::DPL; ++d)
-        pacc[(rp * G + g) * HD + li * S::DPL + d] = acc[i][d];
+        for (int d = 0; d < S::DPL; ++d)
+          pacc[(rp * G + g) * HD + li * S::DPL + d] = acc[i][d];
       if (li == 0) {
         pm[rp * G + g] = m[i];
         pl[rp * G + g] = l[i];

@@ -21,8 +21,9 @@
 // The Q tile and double-buffered K/V tiles of 64 keys (32 at hd 256) are
 // staged by 16-byte cp.async, zero-filled past Sq/Sk and past hd, in the
 // 128-byte-swizzled layout wgmma reads: 64-column blocks of rows x 128 B
-// (hd 16 and 32 are padded to one block with zeros). S = Q Kᵀ is
-// wgmma.mma_async m64nBNk16 with both operands in shared memory
+// (hd 16 and 32 are padded to one block with zero columns, hd 96 and 112
+// to two: Q Kᵀ stays exact, P V's extra columns are never stored). S = Q
+// Kᵀ is wgmma.mma_async m64nBNk16 with both operands in shared memory
 // (K-major). The row max and row sum reduce over each quad with xor
 // shuffles; P never leaves registers: the accumulator layout of S is the
 // register-A layout of wgmma, and O += P V is wgmma m64n(hd)k16 with A
@@ -179,6 +180,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
     RT_FA_CASE(16)
     RT_FA_CASE(32)
     RT_FA_CASE(64)
+    RT_FA_CASE(96)
+    RT_FA_CASE(112)
     RT_FA_CASE(128)
     RT_FA_CASE(256)
     default:
@@ -196,7 +199,9 @@ typedef __nv_bfloat16 bf16;
 constexpr float NEG = -1e30f;    // the reference's mask value
 
 template <int HD> struct WgTile {
-  static constexpr int HP = HD < 64 ? 64 : HD;     // head dim padded to 64s
+  // head dim padded with zero columns to whole 64-column blocks (the
+  // 128-byte swizzle's unit): hd 16, 32 → 64; 96, 112 → 128
+  static constexpr int HP = (HD + 63) / 64 * 64;
   static constexpr int BN = HD >= 256 ? 32 : 64;   // keys per K/V tile
   static constexpr int Q_BYTES = 64 * HP * 2;
   static constexpr int KV_BYTES = BN * HP * 2;
@@ -588,25 +593,22 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   const bf16* kk = static_cast<const bf16*>(k);
   const bf16* vv = static_cast<const bf16*>(v);
   bf16* oo = static_cast<bf16*>(o);
+#define RT_WG_CASE(HD_)                                                     \
+  case HD_:                                                                 \
+    return launch_wg<HD_>(qq, kk, vv, oo, B, Sq, Sk, Hq, Hkv, causal,       \
+                          window, scale, st);
   switch (hd) {
-    case 16:
-      return launch_wg<16>(qq, kk, vv, oo, B, Sq, Sk, Hq, Hkv, causal,
-                           window, scale, st);
-    case 32:
-      return launch_wg<32>(qq, kk, vv, oo, B, Sq, Sk, Hq, Hkv, causal,
-                           window, scale, st);
-    case 64:
-      return launch_wg<64>(qq, kk, vv, oo, B, Sq, Sk, Hq, Hkv, causal,
-                           window, scale, st);
-    case 128:
-      return launch_wg<128>(qq, kk, vv, oo, B, Sq, Sk, Hq, Hkv, causal,
-                            window, scale, st);
-    case 256:
-      return launch_wg<256>(qq, kk, vv, oo, B, Sq, Sk, Hq, Hkv, causal,
-                            window, scale, st);
+    RT_WG_CASE(16)
+    RT_WG_CASE(32)
+    RT_WG_CASE(64)
+    RT_WG_CASE(96)
+    RT_WG_CASE(112)
+    RT_WG_CASE(128)
+    RT_WG_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef RT_WG_CASE
 }
 
 }  // namespace

@@ -149,6 +149,8 @@ int launch_hd(const void* q, const void* kn, const void* vn, const void* kp,
     RT_FD_CASE(16)
     RT_FD_CASE(32)
     RT_FD_CASE(64)
+    RT_FD_CASE(96)
+    RT_FD_CASE(112)
     RT_FD_CASE(128)
     RT_FD_CASE(256)
     default:

@@ -9,10 +9,13 @@
 // does n additions, far below the card's ~20 FLOP per byte fp32 balance
 // point, so the least time is 3 * n * sizeof(T) / 3.35 TB/s.
 //
-// Design: a grid-stride loop of 16-byte vector loads and stores (float4,
-// or 8 x bf16) while all three pointers are 16-byte aligned, then a
-// scalar tail. bf16 is added in fp32 and rounded once, exactly as the
-// plain `x + y` rounds it.
+// Design: one 16-byte vector of each operand a thread (float4, or 8 x
+// bf16) while all three pointers are 16-byte aligned, then a scalar tail;
+// the grid covers n in one pass (a grid-stride loop takes over only past
+// 2^31 - 1 blocks). bf16 is added in fp32 and rounded once, exactly as
+// the plain `x + y` rounds it. A grid capped at 16 blocks an SM that
+// strides lost ~4% to `torch.add`; more vectors a thread and streaming
+// cache hints gained nothing (PERF.md, the vecadd row).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -53,8 +56,7 @@ int launch(const void* x, const void* y, void* out, long long n,
                        reinterpret_cast<uintptr_t>(out)) & 15) == 0;
   const long long work = vec_ok ? n / (16 / sizeof(T)) + 1 : n;
   long long blocks = (work + NT - 1) / NT;
-  if (blocks > 132 * 16) blocks = 132 * 16;   // grid-stride beyond that
-  if (blocks < 1) blocks = 1;
+  if (blocks > 0x7fffffffLL) blocks = 0x7fffffffLL;   // then it strides
   vecadd_kernel<T><<<(unsigned)blocks, NT, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(y),
       static_cast<T*>(out), n, vec_ok);

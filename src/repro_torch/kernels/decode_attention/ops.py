@@ -27,7 +27,7 @@ RING = "decode_attention"
 DECODE = "fused_paged_decode"
 PAGED = "paged_decode_attention"
 SAMPLE = "sample_tokens"
-HEAD_DIMS = (16, 32, 64, 128, 256)     # hd the three attention kernels take
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)   # hd the three kernels take
 GROUPS = tuple(range(1, 17))           # and Hq / Hkv
 CLUSTER_MAX = 16           # CTAs a cluster (non-portable above 8: Hopper)
 

@@ -13,7 +13,7 @@ from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 NAME = "flash_attention"
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
 
 
 def flash_attention_op(q, k, v, *, causal=True, window=0):

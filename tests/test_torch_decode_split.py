@@ -100,7 +100,7 @@ def test_split_plan_reads_static_shapes_only():
 
 
 def test_decode_kernels_take_every_head_dim_and_group_up_to_16():
-    assert ops.HEAD_DIMS == (16, 32, 64, 128, 256)
+    assert ops.HEAD_DIMS == (16, 32, 64, 96, 112, 128, 256)
     assert ops.GROUPS == tuple(range(1, 17))
 
 
