@@ -208,6 +208,14 @@ def require(cond: bool, msg: str):
         raise ValueError(msg)
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (the launch plans' one input that is
+    not a shape)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def stream_of(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -13,8 +13,8 @@ The three attention kernels split each (slot, kv head)'s walk over a
 thread block cluster of CTAs and merge the partials inside the same
 launch; :func:`split_plan` picks the split from static shapes and the
 card's SM count only — never from ``lengths`` or ``pos``, which stay on
-the device."""
-import functools
+the device. The sampler splits each row over a cluster the same way
+(:func:`sample_plan`)."""
 
 import torch
 
@@ -56,9 +56,25 @@ def split_plan(B, Hkv, rows, sm_count, unit=1):
     return split_share(rows, splits, unit)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device):
-    return torch.cuda.get_device_properties(device).multi_processor_count
+#: columns a sampler CTA takes at least: one float4 of each row for each
+#: of its 512 threads. It binds only below V = 16 * 2048 = 32768, under
+#: every served vocabulary; no other value was timed.
+SAMPLE_MIN_SHARE = 2048
+
+
+def sample_plan(B, V, sm_count):
+    """The sampler's plan from static shapes: (CTAs a row, share). Row
+    ``b`` is split over a cluster of CTAs, CTA r taking the columns
+    ``[r * share, min(V, (r + 1) * share))``; ``share`` is a multiple of
+    4 (16-byte interior edges) and no CTA gets an empty slice. The most
+    CTAs a row, a power of two up to :data:`CLUSTER_MAX`, that keep the
+    grid to one wave of two CTAs on each of ``sm_count`` SMs and give
+    every CTA at least :data:`SAMPLE_MIN_SHARE` columns."""
+    ctas = 1
+    while (ctas < CLUSTER_MAX and B * 2 * ctas <= 2 * sm_count
+           and V >= 2 * ctas * SAMPLE_MIN_SHARE):
+        ctas *= 2
+    return split_share(V, ctas, 4)
 
 
 def _check_kernel_shape(hd, Hq, Hkv):
@@ -113,7 +129,7 @@ def decode_attention_op(q, k_cache, v_cache, pos, *, window=0,
     else:
         require(int(pos) >= 0, f"pos must be >= 0, got {pos}")
         pos_ptr, pos_val = None, int(pos)
-    splits, share = split_plan(B, Hkv, C, _sm_count(q.device))
+    splits, share = split_plan(B, Hkv, C, common.sm_count(q.device))
     out = torch.empty_like(q)
     fn = common.entry(RING, "decode_attention", "pppppiiiiiiiiiifp")
     code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -152,7 +168,7 @@ def _paged_decode_op(q, k_pages, v_pages, lengths, block_tables, window):
                             lengths=lengths, block_tables=block_tables)
     _check_aligned(q=q, k_pages=k_pages, v_pages=v_pages)
     nb = block_tables.shape[1]
-    splits, share = split_plan(B, Hkv, nb * ps, _sm_count(q.device), ps)
+    splits, share = split_plan(B, Hkv, nb * ps, common.sm_count(q.device), ps)
     out = torch.empty_like(q)
     fn = common.entry(DECODE, "paged_decode_attention", "ppppppiiiiiiiiiifp")
     code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -193,7 +209,7 @@ def fused_decode_step_op(q, k_new, v_new, k_pages, v_pages, lengths,
     _check_aligned(q=q, k_new=k_new, v_new=v_new, k_pages=k_pages,
                    v_pages=v_pages)
     nb = block_tables.shape[1]
-    splits, share = split_plan(B, Hkv, nb * ps, _sm_count(q.device), ps)
+    splits, share = split_plan(B, Hkv, nb * ps, common.sm_count(q.device), ps)
     out = torch.empty_like(q)
     fn = common.entry(DECODE, "fused_paged_decode_attention",
                       "ppppppppiiiiiiiiiifp")
@@ -209,8 +225,16 @@ def fused_decode_step_op(q, k_new, v_new, k_pages, v_pages, lengths,
 
 def sample_tokens_op(logits, temps, noise):
     """On-device argmax/Gumbel-max sampling: (B,V) + (B,) + (B,V) → (B,)
-    int32. Inputs are taken in fp32, as the reference kernel takes
-    them."""
+    int32, ``argmax(logits + noise * temps)`` per row. Inputs are taken
+    in fp32, as the reference kernel takes them.
+
+    The order is ``np.argmax``'s and ``torch.argmax``'s, held by the
+    kernel and the plain version alike: scores are ordered totally, a NaN
+    above +inf; among equal scores, and among NaNs, the lowest index
+    wins; -0.0 and +0.0 are equal; an all -inf row picks 0. Noise is
+    used on greedy rows too: T = 0 with an infinite noise value gives a
+    NaN score, which wins its row. (The reference's Pallas kernel skips a
+    2048-wide block that holds a NaN instead: ROADMAP, faults queue.)"""
     require = common.require
     require(logits.dim() == 2 and noise.shape == logits.shape
             and temps.shape == logits.shape[:1], "bad sampler shapes")
@@ -220,10 +244,12 @@ def sample_tokens_op(logits, temps, noise):
     noise = noise.float().contiguous()
     temps = temps.float().contiguous()
     B, V = logits.shape
+    require(B > 0 and V > 0, "empty sampler rows")
+    ctas, share = sample_plan(B, V, common.sm_count(logits.device))
     out = torch.empty((B,), dtype=torch.int32, device=logits.device)
-    fn = common.entry(SAMPLE, "sample_tokens", "ppppiip")
+    fn = common.entry(SAMPLE, "sample_tokens", "ppppiiiip")
     code = fn(logits.data_ptr(), noise.data_ptr(), temps.data_ptr(),
-              out.data_ptr(), B, V, common.stream_of(logits))
+              out.data_ptr(), B, V, ctas, share, common.stream_of(logits))
     common.check(code, "sample_tokens")
     common.LAUNCHES[SAMPLE] += 1
     return out

@@ -115,7 +115,10 @@ def paged_decode_attention_ref(q, k_pages, v_pages, lengths, block_tables,
 
 
 def sample_tokens_ref(logits, temps, noise):
-    """argmax(logits + noise·T) per row → (B,) int32; the first maximal
-    index wins a tie (torch.argmax semantics)."""
+    """argmax(logits + noise·T) per row → (B,) int32, in torch.argmax's
+    (and np.argmax's) order: scores are ordered totally, a NaN above
+    +inf; among equal scores, and among NaNs, the lowest index wins; -0.0
+    and +0.0 are equal; an all -inf row picks 0. T = 0 with an infinite
+    noise value gives a NaN score (0·inf), which wins its row."""
     scores = logits.float() + noise.float() * temps.float()[:, None]
     return torch.argmax(scores, dim=-1).to(torch.int32)

@@ -7,7 +7,6 @@ A CUDA tensor launches ``csrc/rwkv6_wkv.cu`` (the chunked form) on the
 current stream, one launch a call with no sequence padding; a CPU tensor
 runs :func:`rwkv6_wkv_ref`. :func:`wkv_split` picks how many CTAs share
 a head's state columns from static shapes and the SM count only."""
-import functools
 
 import torch
 
@@ -32,11 +31,6 @@ def wkv_split(B, H, K, sm_count):
     return nv
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device):
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def rwkv6_wkv_op(r, k, v, logw, u, s0):
     require = common.require
     require(r.dim() == 4 and k.shape == v.shape == logw.shape == r.shape,
@@ -56,7 +50,7 @@ def rwkv6_wkv_op(r, k, v, logw, u, s0):
             "must be 16-byte aligned")
     o = torch.empty_like(r)
     s_fin = torch.empty_like(s0)
-    nv = wkv_split(B, H, K, _sm_count(r.device))
+    nv = wkv_split(B, H, K, common.sm_count(r.device))
     fn = common.entry(NAME, "rwkv6_wkv", "ppppppppiiiiip")
     code = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
               u.data_ptr(), s0.data_ptr(), o.data_ptr(), s_fin.data_ptr(),
