@@ -58,21 +58,41 @@ Phases, each printing its lines and raising on any failure:
 6. serve, recurrent — full-width ``recurrentgemma-2b`` and ``rwkv6-7b``
    (full depth, bf16, random weights from a fixed seed) with paged
    recurrent state, the same requests in both modes; state pages
-   leased == freed too, each model freed before the next;
+   leased == freed too; then chunked through a VMM tenant (``slo``):
+   the native ids, and the virtualization ratio of the step p50. Every
+   family's weights are made once (rwkv6-7b first, on an empty card) and
+   shared by phases 3–7 and 9–10;
 7. VMM programs — a tenant reprograms the full-width prefill program
    (B=4, S=4096) and the decode program of the same capacity, runs the
    prefill and 32 greedy decode steps through the guest API at pos
    4096…4127 (``decode_attention`` 24 times a step), takes a warm hit,
-   and a cross-slice reprogram is refused;
+   and a cross-slice reprogram is refused; then the same for
+   ``recurrentgemma-2b`` (swa rings of 2048, recurrent rows;
+   ``decode_attention`` 8 times a step) and ``rwkv6-7b``: the ids equal
+   native ``prefill``/``decode`` in the same call, the recurrence
+   kernel's device time at B=4 is read from a trace of the prefill, and
+   the prefill program at a cut depth agrees with the CPU plain path;
 8. reference — the card against the plain PyTorch path on the CPU:
    full-width fp32 prefill logits and reduced-config engine token ids in
    both modes (qwen, and both recurrent families at full width cut to
    one block period, with 3 paged decode steps); the step builders'
    full-width fp32 decode logits and reduced-config decode ids over a
    wrapped ring;
-9. apps — the paper's three apps (``launch/apps.py``) native and through
+9. KV hierarchy — full-width ``qwen1.5-0.5b``: prefix sharing (at
+   least 3 warm admissions over a 64-token prefix, CoW forks, the ids of
+   the run without sharing) and the host swap tier on half of the KV
+   working set (pages swapped out and refaulted, full budgets, the
+   unpressured ids, leased == freed, refcounts consistent, swap-out and
+   refault times); ``recurrentgemma-2b``'s state rows parked and
+   refaulted under the same pressure with the unpressured ids;
+10. mux — the three families as bitstreams in one ``ModelRegistry`` on a
+   VMM's loader, one ``MuxEngine``: the ids of solo engines, before and
+   after churn under ``max_resident=1`` (swaps both ways, CRC over every
+   weight byte at register and swap-in, no failure); a flipped byte in a
+   host copy is refused and counted once; swap-in and swap-out times;
+11. apps — the paper's three apps (``launch/apps.py``) native and through
    three bound tenants, at the reference size and at the card's;
-10. times — per mode TTFT, throughput and the median engine step; per
+12. times — per mode TTFT, throughput and the median engine step; per
    kernel its device time (torch.profiler/CUPTI; the per-call CUDA-event
    time is printed beside it), its plain version's, one PyTorch call
    computing the same function (``library_ms``, a yardstick the port
@@ -170,7 +190,21 @@ PATH_KERNELS = {"monolithic": ("flash_attention", "fused_paged_decode"),
                 "recurrentgemma-chunked": ("rglru_scan", "fused_paged_decode",
                                            "sample_tokens"),
                 "rwkv6-monolithic": ("rwkv6_wkv",),
-                "rwkv6-chunked": ("rwkv6_wkv", "sample_tokens")}
+                "rwkv6-chunked": ("rwkv6_wkv", "sample_tokens"),
+                "recurrentgemma-virtualized-chunked": (
+                    "rglru_scan", "fused_paged_decode", "sample_tokens"),
+                "rwkv6-virtualized-chunked": ("rwkv6_wkv", "sample_tokens"),
+                "recurrentgemma-vmm-programs": (
+                    "flash_attention", "rglru_scan", "decode_attention"),
+                "rwkv6-vmm-programs": ("rwkv6_wkv",),
+                "kv-hierarchy-share": ("fused_paged_decode",
+                                       "sample_tokens"),
+                "kv-hierarchy-swap": ("fused_paged_decode", "sample_tokens"),
+                "kv-hierarchy-state-swap": ("rglru_scan",
+                                            "fused_paged_decode",
+                                            "sample_tokens"),
+                "mux": ("rglru_scan", "rwkv6_wkv", "fused_paged_decode",
+                        "sample_tokens")}
 #: the recurrent families served at full width: arch, path name, and the
 #: depth of the card-vs-CPU reference (one block period)
 RECURRENT_ARCHS = (("recurrentgemma-2b", "recurrentgemma", 3),
@@ -209,7 +243,29 @@ def device_ms(fn, reps=50, warmup=5):
         if rows:
             return sum(t / n * -(-n // reps) for t, n, _ in rows) / 1e3
         log("[time] the trace holds no device event; tracing again")
-    raise AssertionError("five traces held no device event")
+    # traces can stay empty for several in a row (after the long serving
+    # phases): then the time is taken between two CUDA events around the
+    # ``reps`` calls back to back, which adds any launch gap to the
+    # device time of a short kernel
+    ms = batch_event_ms(fn, reps)
+    log(f"[time] five traces held no device event; timed {reps} calls "
+        f"back to back between CUDA events: {ms:.4f} ms a call")
+    return ms
+
+
+def batch_event_ms(fn, reps):
+    """Time of one call, between two CUDA events around ``reps`` calls
+    launched back to back."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def device_rows(prof):
@@ -223,6 +279,11 @@ def device_rows(prof):
             rows.append((e.self_cuda_time_total if dev is None else dev,
                          e.count, e.key))
     return sorted(rows, reverse=True)
+
+
+def fmt_ms(ms):
+    """A measured time in ms, or "not recorded" when a trace kept none."""
+    return "not recorded" if ms is None else f"{ms:.4f}"
 
 
 def wall_ms(fn, reps=50, warmup=5):
@@ -707,7 +768,7 @@ def check_one_launch(device):
             torch.cuda.set_sync_debug_mode("default")
         counted = dict(common.LAUNCHES)
         torch.cuda.synchronize()
-        for _ in range(5):                 # a trace may hold no event
+        for _ in range(10):                # a trace may hold no event
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
@@ -1160,12 +1221,13 @@ def count_path(path, counts, launches):
 
 
 def virtualized_phase(mode, policy, cfg, model, params, requests, native,
-                      launches):
+                      launches, path=None, engine_kw=None, strict=False):
     """The native phase's requests through a VMM tenant (one 1×1 slice of
     the card, pool sized from the card): every step via
     ``tenant.device.run``, KV pages from the tenant's MMU pool, the
     pool-pressure admission gate. Token ids must equal the native run's
-    unless the engine says why (deferred admissions)."""
+    unless the engine says why (deferred admissions); with ``strict``
+    they must equal them."""
     import torch
     from repro_torch.kernels import common
     from repro_torch.launch.serve import virtual_server, virtualized_engine_kw
@@ -1176,14 +1238,14 @@ def virtualized_phase(mode, policy, cfg, model, params, requests, native,
         common.reset_launches()
         eng, outs, wall, steps = serve(
             cfg, model, params, requests, chunk,
-            engine_kw=virtualized_engine_kw(tenant))
+            engine_kw={**(engine_kw or {}), **virtualized_engine_kw(tenant)})
         counts = dict(common.LAUNCHES)
         st = vmm.stats()
     finally:
         vmm.shutdown()
     s = eng.stats
     sched = st["scheduler"]["tenants"]["server"]
-    path = f"virtualized-{mode}"
+    path = path or f"virtualized-{mode}"
     log(f"[{path}] policy={policy}: {s.completed} requests, "
         f"{s.generated_tokens} tokens in {wall:.3f}s; {s.steps} steps, "
         f"full_prefills={s.full_prefills}, pages leased={s.pages_leased} "
@@ -1204,9 +1266,12 @@ def virtualized_phase(mode, policy, cfg, model, params, requests, native,
     log(f"[{path}] token ids vs native {mode}: "
         f"{'identical' if same else 'DIFFER'}"
         + ("" if same else f" (deferred={s.deferred})"))
-    if not same and s.deferred == 0:
-        raise AssertionError(f"{path}: tokens differ from native with no "
-                             "deferred admission to explain it")
+    if not same and (strict or s.deferred == 0):
+        raise AssertionError(f"{path}: tokens differ from native"
+                             + ("" if strict else " with no deferred "
+                                "admission to explain it"))
+    if s.state_pages_leased != s.state_pages_freed:
+        raise AssertionError(f"{path}: state pages leased != freed")
     count_path(path, counts, launches)
     del eng
     torch.cuda.empty_cache()
@@ -1220,17 +1285,22 @@ def program_params(abstract, cfg, device, seed):
     import torch
     from repro_torch.models import Model
     gen = torch.Generator(device=device).manual_seed(seed)
+    return as_program_params(abstract, Model(cfg, device).init(gen))
 
-    def cast(p, a):
-        if isinstance(a, dict):
-            return {k: cast(p[k], a[k]) for k in a}
-        if isinstance(a, list):
-            return [cast(x, y) for x, y in zip(p, a)]
-        if p.shape != a.shape:
-            raise AssertionError(f"weights {tuple(p.shape)} vs program "
-                                 f"{tuple(a.shape)}")
-        return p.to(a.dtype)
-    return cast(Model(cfg, device).init(gen), abstract)
+
+def as_program_params(abstract, params):
+    """``params`` in the dtypes of a program's abstract parameters (a
+    leaf of the right dtype is taken as it is, so served bf16 weights are
+    not copied; their fp32 recurrent gates get bf16 copies)."""
+    if isinstance(abstract, dict):
+        return {k: as_program_params(abstract[k], params[k])
+                for k in abstract}
+    if isinstance(abstract, list):
+        return [as_program_params(a, p) for a, p in zip(abstract, params)]
+    if params.shape != abstract.shape:
+        raise AssertionError(f"weights {tuple(params.shape)} vs program "
+                             f"{tuple(abstract.shape)}")
+    return params.to(abstract.dtype)
 
 
 def vmm_programs_phase(device, launches, S=4096, B=4, n_decode=32):
@@ -1607,39 +1677,482 @@ def recurrent_reference_phase(device):
                                      f"{b}")
 
 
-def recurrent_serve_phases(device, launches):
-    """recurrentgemma-2b and rwkv6-7b at full width and depth (random
-    weights from a fixed seed, bf16 compute) through ``ServeEngine`` with
-    paged recurrent state, monolithic and chunked; each model is freed
-    before the next (rwkv6-7b holds ~30 GB of fp32 weights while its
-    bf16 copy is made)."""
+def build_weights(device):
+    """Every served family's weights once (random from seed 0, product
+    weights in bf16), reused by the serve, VMM-program, KV-hierarchy and
+    mux phases: rwkv6-7b first, on an empty card, since its fp32 init
+    (~30 GB) lives until its bf16 copy exists."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    modes = {}
-    for arch, short, _ in RECURRENT_ARCHS:
+    out = {}
+    for arch in ("rwkv6-7b", "recurrentgemma-2b", "qwen1.5-0.5b"):
         cfg = get_config(arch)
         model = Model(cfg, device)
         t0 = time.perf_counter()
         params = model.compute_params(
             model.init(torch.Generator(device=device).manual_seed(0)))
         sync(device)
-        log(f"[serve:{short}] {arch}: {cfg.n_layers} layers, d_model "
-            f"{cfg.d_model}, vocab {cfg.vocab}; weights made in "
+        torch.cuda.empty_cache()
+        log(f"[weights] {arch}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, vocab {cfg.vocab}; made in "
             f"{time.perf_counter() - t0:.1f}s, "
-            f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card; "
-            f"state row {model.state_row_bytes()} B per slot, KV page "
-            f"{model.kv_page_bytes(16)} B")
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card "
+            f"so far; state row {model.state_row_bytes()} B per slot, KV "
+            f"page {model.kv_page_bytes(16)} B")
+        out[arch] = (cfg, model, params)
+    return out
+
+
+def recurrent_serve_phases(device, launches, weights):
+    """recurrentgemma-2b and rwkv6-7b at full width and depth (bf16
+    compute) through ``ServeEngine`` with paged recurrent state,
+    monolithic and chunked, then chunked through a VMM tenant (policy
+    ``slo``): its ids must equal the native chunked run's. → (the native
+    modes' figures, the virtualized ones')."""
+    modes, virt = {}, {}
+    for arch, short, _ in RECURRENT_ARCHS:
+        cfg, model, params = weights[arch]
         requests = make_requests(cfg.vocab)
+        kw = {"state_paging": True}
         for mode in ("monolithic", "chunked"):
             path = f"{short}-{mode}"
             modes[path] = serve_phase(mode, cfg, model, params, requests,
-                                      launches, path=path,
-                                      engine_kw={"state_paging": True})
-            modes[path].pop("outs")
-        del params, model
-        torch.cuda.empty_cache()
-    return modes
+                                      launches, path=path, engine_kw=kw)
+            native = modes[path].pop("outs")
+        virt[short] = virtualized_phase(
+            "chunked", "slo", cfg, model, params, requests, native,
+            launches, path=f"{short}-virtualized-chunked", engine_kw=kw,
+            strict=True)
+        ratio = virt[short]["step_p50_ms"] / modes[path]["step_p50_ms"]
+        log(f"[{short}-virtualized-chunked] virtualization ratio of engine "
+            f"step p50: {virt[short]['step_p50_ms']:.3f} / "
+            f"{modes[path]['step_p50_ms']:.3f} ms = {ratio:.3f}")
+    return modes, virt
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families' VMM programs, the KV page hierarchy, the mux
+# ---------------------------------------------------------------------------
+
+#: the kernel a prefill program runs for each recurrent family's
+#: recurrence (its CUDA kernel name), timed on the served path at B=4
+RECURRENCE_KERNELS = {"recurrentgemma": ("rglru_scan", "rglru_scan_kernel"),
+                      "rwkv6": ("rwkv6_wkv", "wkv_chunk_kernel")}
+
+
+def recurrent_programs_phase(device, launches, weights, arch, short, depth,
+                             S=4096, B=4, n_decode=32, n_cut_decode=6):
+    """A recurrent family's VMM programs at full width and depth through
+    the guest API: the prefill program at B, S into rings of capacity S
+    (a swa ring holds min(window, S)) and recurrent rows, then the decode
+    program for ``n_decode`` greedy steps at pos S… (the rings wrap). The
+    ids must equal native ``Model.prefill``/``decode`` on the same
+    weights in this call; the recurrence kernel's device time at B is
+    read from a trace of the program's prefill. Then the programs at a
+    cut depth (``depth`` layers, fp32 compute, B=1): the prefill at S=130
+    and ``n_cut_decode`` decode steps past the rings' end, their logits
+    on the card against the CPU plain path (tol 1e-3)."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core import ProgramRequest
+    from repro_torch.kernels import common
+    from repro_torch.launch.serve import virtual_server
+    from repro_torch.parallel.steps import build_decode, build_prefill
+    cfg, model, served = weights[arch]
+    n_attn = sum(s.is_attn for s in model.specs)
+    path = f"{short}-vmm-programs"
+    vmm, tenant = virtual_server(device, "hybrid")
+    try:
+        dev = tenant.device
+        t0 = time.perf_counter()
+        prog = dev.reprogram(ProgramRequest(arch, "prefill", S, B,
+                                            reduced=False))
+        t_pf = time.perf_counter() - t0
+        params = as_program_params(prog.bitfile.abstract_args[0], served)
+        gen = torch.Generator(device=device).manual_seed(6)
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                               device=device, dtype=torch.int32)
+        dev.run(params, {"tokens": tokens[:, :64]})          # warm-up
+        sync(device)
+        common.reset_launches()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            logits, caches = dev.run(params, {"tokens": tokens})
+            sync(device)
+        t_prefill = time.perf_counter() - t0
+        counts = dict(common.LAUNCHES)
+        kname, cuda_name = RECURRENCE_KERNELS[short]
+        # a trace may lose events: the mean is over the recorded ones
+        # (None when the trace kept none)
+        rec = [(t, n) for t, n, key in device_rows(prof) if cuda_name in key]
+        rec_events = sum(n for _, n in rec)
+        rec_ms = sum(t for t, _ in rec) / 1e3 / rec_events \
+            if rec_events else None
+        C = min(cfg.window, S) if "swa" in cfg.block_pattern else S
+        if n_attn and tuple(caches["k"].shape) != (
+                n_attn, B, C, cfg.n_kv_heads, cfg.d_head):
+            raise AssertionError(f"{path}: rings {tuple(caches['k'].shape)}")
+        if len(caches["rows"]) != cfg.n_layers:
+            raise AssertionError(f"{path}: no recurrent rows")
+        t0 = time.perf_counter()
+        dev.reprogram(ProgramRequest(arch, "decode", S, B, reduced=False))
+        t_dc = time.perf_counter() - t0
+
+        def greedy(run, lg, c):
+            ids = []
+            for i in range(n_decode):
+                tok = lg[:, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
+                ids.append(tok[:, 0].tolist())
+                pos = torch.tensor(S + i, dtype=torch.int32, device=device)
+                lg, c = run(params, c, tok, pos)
+            return ids, lg
+
+        common.reset_launches()
+        t0 = time.perf_counter()
+        ids, last = greedy(dev.run, logits, caches)
+        sync(device)
+        t_steps = time.perf_counter() - t0
+        dcounts = dict(common.LAUNCHES)
+        for k, v in dcounts.items():
+            counts[k] = counts.get(k, 0) + v
+        if not bool(torch.isfinite(last.float()).all()):
+            raise AssertionError(f"{path}: non-finite decode logits")
+        per_step = dcounts.get("decode_attention", 0) / n_decode
+        del caches
+        lg, c = model.prefill(params, {"tokens": tokens}, capacity=S)
+        native, _ = greedy(model.decode, lg, c)
+        del c
+        same = ids == native
+        log(f"[{path}] {arch}: prefill program B={B} S={S} (reprogram "
+            f"{t_pf:.2f}s) {1e3 * t_prefill:.1f} ms, {kname} "
+            f"{counts.get(kname, 0)} launches, {rec_events} recorded in the "
+            f"trace, at {fmt_ms(rec_ms)} device ms each (B={B}, the "
+            f"recorded events' mean); decode program C={C} "
+            f"(reprogram {t_dc:.2f}s): {n_decode} greedy steps at pos "
+            f"{S}..{S + n_decode - 1} in {t_steps:.3f}s "
+            f"({1e3 * t_steps / n_decode:.1f} ms/step); decode_attention "
+            f"per step {per_step:g} (want {n_attn}); ids vs native "
+            f"prefill/decode: {'identical' if same else 'DIFFER'}; "
+            f"launches={counts}")
+        if per_step != n_attn:
+            raise AssertionError(f"{path}: decode_attention must launch "
+                                 "once per attention layer per step")
+        if not same:
+            raise AssertionError(f"{path}: program ids differ from native")
+        count_path(path, counts, launches)
+    finally:
+        vmm.shutdown()
+    del params, logits
+    torch.cuda.empty_cache()
+
+    # cut depth, fp32: the prefill program fills rings of 130 slots (a
+    # swa ring too: 130 < window), then the decode program steps past
+    # them, so every ring wraps; the card's greedy token feeds both sides
+    cut = dataclasses.replace(cfg, n_layers=depth, compute_dtype="float32")
+    cpu = torch.device("cpu")
+    progs = {}
+    for d in (device, cpu):
+        pf, abstract = build_prefill(cut, d, ShapeCell("c", 130, 1,
+                                                       "prefill"))
+        dc, _ = build_decode(cut, d, ShapeCell("c", 130, 1, "decode"))
+        progs[d.type] = (pf, dc)
+    p_dev = program_params(abstract[0], cut, device, 19)
+    p_cpu = cpu_tree(p_dev)
+    tok = torch.from_numpy(make_requests(cfg.vocab, 2, seed=8)[1][0][None]
+                           ).to(torch.int32)
+    lg_dev, c_dev = progs[device.type][0](p_dev, {"tokens": tok.to(device)})
+    lg_cpu, c_cpu = progs["cpu"][0](p_cpu, {"tokens": tok})
+    errs, scale = [], 0.0
+    for step in range(n_cut_decode + 1):
+        got = lg_dev[:, :cfg.vocab].float().cpu()
+        want = lg_cpu[:, :cfg.vocab]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{path}: non-finite cut-depth logits")
+        errs.append(_max_err(got, want))
+        scale = max(scale, float(want.abs().max()))
+        if step == n_cut_decode:
+            break
+        nxt = got.argmax(-1)[:, None].to(torch.int32)
+        lg_dev, c_dev = progs[device.type][1](
+            p_dev, c_dev, nxt.to(device),
+            torch.tensor(130 + step, dtype=torch.int32, device=device))
+        lg_cpu, c_cpu = progs["cpu"][1](
+            p_cpu, c_cpu, nxt, torch.tensor(130 + step, dtype=torch.int32))
+    err = max(errs)
+    log(f"[{path}] programs at {depth} layers, fp32, B=1: prefill S=130 "
+        f"then {n_cut_decode} decode steps at pos 130..{129 + n_cut_decode} "
+        f"({'the rings wrap' if n_attn else 'recurrent rows only'}), "
+        f"logits card vs CPU: max_abs_err={err:.3g} per "
+        f"step {[f'{e:.3g}' for e in errs]} (max |logit| {scale:.3g}, tol "
+        f"1e-3) {'ok' if err <= 1e-3 else 'FAIL'}")
+    if err > 1e-3:
+        raise AssertionError(f"{path}: card and CPU program logits "
+                             "disagree")
+    del p_dev, c_dev
+    torch.cuda.empty_cache()
+    return {"rec_ms_b4": rec_ms, "kernel": kname}
+
+
+def _hist(obs, name):
+    """Summary of histogram ``name`` (all labels merged: count, sum,
+    p50 of the first label set)."""
+    h = obs.registry.snapshot()["histograms"].get(name, {})
+    if not h:
+        return {"count": 0, "sum": 0.0, "p50": 0.0}
+    first = next(iter(h.values()))
+    return {"count": sum(v["count"] for v in h.values()),
+            "sum": sum(v["sum"] for v in h.values()), "p50": first["p50"]}
+
+
+def kv_hierarchy_phase(device, launches, weights):
+    """The KV page hierarchy at full width and depth. qwen1.5-0.5b
+    (24 layers, 16-token pages), batch 4, capacity 256, chunk_tokens 32,
+    greedy: (1) sharing — 8 requests, 4 of them a common 64-token prefix
+    (4 pages) with distinct tails of 16–66 tokens, the first of them
+    admitted with the first batch and the other three later: at least 3
+    warm admissions covering 192 tokens, CoW forks counted, the ids of the
+    same run without sharing; (2) swap — a pool of 32 of the 64 pages of
+    the KV working set, 96 new tokens a request: pages swapped out and
+    refaulted, every request its full budget, the unpressured ids, pages
+    leased == freed, refcounts consistent; (3) state swap — recurrentgemma
+    with paged state rows on half of its KV and state working set: state
+    pages parked, the unpressured ids."""
+    import numpy as np
+    from repro_torch.core.mmu import SegmentPool
+    from repro_torch.kernels import common
+    from repro_torch.obs import ObsHub
+
+    def run(cfg, model, params, requests, path=None, obs=None, **kw):
+        common.reset_launches()
+        eng, outs, wall, _ = serve(cfg, model, params, requests, 32,
+                                   obs=obs, engine_kw=kw)
+        if path is not None:
+            count_path(path, dict(common.LAUNCHES), launches)
+            log(f"[kv-hierarchy] {path}: launches={dict(common.LAUNCHES)}")
+        s = eng.stats
+        if s.completed != len(requests) or any(
+                len(o) != n for o, (_, n, _) in zip(outs, requests)):
+            raise AssertionError(f"{path}: a request lost tokens")
+        if s.pages_leased != s.pages_freed or \
+                s.state_pages_leased != s.state_pages_freed or \
+                not eng.kv.pool.refcounts_consistent():
+            raise AssertionError(f"{path}: paging invariants broken")
+        return eng, outs, wall
+
+    cfg, model, params = weights["qwen1.5-0.5b"]
+    pb = model.kv_page_bytes(16)
+    rng = np.random.default_rng(21)
+    prefix = rng.integers(0, cfg.vocab, 64)
+    shared = [np.concatenate([prefix, rng.integers(0, cfg.vocab, t)])
+              for t in (16, 66, 37, 50)]
+    others = [rng.integers(0, cfg.vocab, n) for n in (48, 97, 33, 120)]
+    order = [shared[0], *others[:3], *shared[1:], others[3]]
+    requests = [(p, 32, 0.0) for p in order]
+    _, cold, _ = run(cfg, model, params, requests)
+    obs = ObsHub(enabled=True)
+    eng, warm, wall = run(cfg, model, params, requests,
+                          "kv-hierarchy-share", obs, share_prefix=True)
+    s = eng.stats
+    log(f"[kv-hierarchy] share: qwen1.5-0.5b, page {pb} B: "
+        f"{s.shared_prefix_hits} warm admissions, {s.shared_prefix_tokens} "
+        f"shared tokens, {s.cow_forks} CoW forks, {s.prefill_chunks} "
+        f"chunks, {wall:.3f}s; ids vs share_prefix=False: "
+        f"{'identical' if warm == cold else 'DIFFER'}")
+    if s.shared_prefix_hits < 3 or s.shared_prefix_tokens < 192 \
+            or s.cow_forks <= 0 or warm != cold \
+            or not eng.kv.no_double_mapping():
+        raise AssertionError("kv-hierarchy: sharing gates failed")
+    eng.kv.prefix.evict_all()
+    if eng.kv.memory_stats()["segments_in_use"] != 0:
+        raise AssertionError("kv-hierarchy: shared frames leaked")
+    del eng
+
+    swap_reqs = [(p, 96, 0.0) for p, _, _ in make_requests(cfg.vocab)]
+    _, ref, _ = run(cfg, model, params, swap_reqs)
+    obs = ObsHub(enabled=True)
+    pool = SegmentPool(total_bytes=32 * pb, backend="bitmap",
+                       segment_bytes=pb)
+    eng, got, wall = run(cfg, model, params, swap_reqs, "kv-hierarchy-swap",
+                         obs, swap=True, pool=pool)
+    s = eng.stats
+    out_h, ref_h = _hist(obs, "kv_swap_out_s"), _hist(obs, "kv_refault_s")
+    moved = s.swap_outs
+    log(f"[kv-hierarchy] swap: pool 32 of 64 pages ({32 * pb} B): "
+        f"{s.swap_outs} pages swapped out in {out_h['count']} parks, "
+        f"{s.swap_ins} refaulted, {s.deferred} deferred, {wall:.3f}s; "
+        f"kv_swap_out_s p50 {1e3 * out_h['p50']:.3f} ms a park "
+        f"({1e3 * out_h['sum'] / max(moved, 1):.3f} ms a page, "
+        f"{pb * moved / max(out_h['sum'], 1e-9) / 1e9:.2f} GB/s), "
+        f"kv_refault_s p50 {1e3 * ref_h['p50']:.3f} ms a page "
+        f"({pb * s.swap_ins / max(ref_h['sum'], 1e-9) / 1e9:.2f} GB/s), "
+        f"{pb} B a page; ids vs unpressured: "
+        f"{'identical' if got == ref else 'DIFFER'}")
+    if s.swap_outs <= 0 or s.swap_ins <= 0 or got != ref:
+        raise AssertionError("kv-hierarchy: swap gates failed")
+    del eng, pool
+
+    cfg, model, params = weights["recurrentgemma-2b"]
+    pb = model.kv_page_bytes(16)
+    state_pages = -(-model.state_row_bytes() // pb)
+    n_pages = (4 * (256 // 16) + 4 * state_pages) // 2
+    swap_reqs = [(p, 96, 0.0) for p, _, _ in make_requests(cfg.vocab)]
+    _, ref, _ = run(cfg, model, params, swap_reqs, state_paging=True)
+    obs = ObsHub(enabled=True)
+    pool = SegmentPool(total_bytes=n_pages * pb, backend="bitmap",
+                       segment_bytes=pb)
+    eng, got, wall = run(cfg, model, params, swap_reqs,
+                         "kv-hierarchy-state-swap", obs, swap=True,
+                         pool=pool, state_paging=True)
+    s = eng.stats
+    st_h = _hist(obs, "state_swap_out_s")
+    sr_h = _hist(obs, "state_refault_s")
+    row = model.state_row_bytes()
+    log(f"[kv-hierarchy] state swap: recurrentgemma-2b, pool {n_pages} "
+        f"pages of {pb} B (half of 64 KV + {4 * state_pages} state pages): "
+        f"{s.state_swap_outs} state pages parked / {s.state_swap_ins} "
+        f"refaulted, {s.swap_outs} / {s.swap_ins} KV pages, {wall:.3f}s; "
+        f"state_swap_out_s p50 {1e3 * st_h['p50']:.3f} ms a row of {row} B "
+        f"({row * st_h['count'] / max(st_h['sum'], 1e-9) / 1e9:.2f} GB/s), "
+        f"state_refault_s p50 {1e3 * sr_h['p50']:.3f} ms "
+        f"({row * sr_h['count'] / max(sr_h['sum'], 1e-9) / 1e9:.2f} GB/s); "
+        f"ids vs unpressured: {'identical' if got == ref else 'DIFFER'}")
+    if s.state_swap_outs <= 0 or got != ref:
+        raise AssertionError("kv-hierarchy: state swap gates failed")
+
+
+def mux_phase(device, launches, weights):
+    """qwen1.5-0.5b, recurrentgemma-2b and rwkv6-7b at full width as
+    bitstreams in one ``ModelRegistry`` that shares a VMM's
+    ``ProgramLoader``, served by one ``MuxEngine`` (batch 2 a family,
+    capacity 256, chunk_tokens 32, greedy, two prompts a family,
+    interleaved): the ids of solo ``ServeEngine`` runs on the same
+    weights; then churn under ``max_resident=1`` (one request a family in
+    turn, qwen first: the budget evicts the other two, and each of them
+    is swapped back in for its turn): at least 2 swap-ins and 2
+    swap-outs, no CRC failure, the solo ids; then a flipped byte in a
+    swapped-out host copy raises ``LegalityError`` and counts one CRC
+    failure. The registry takes over
+    the weights (``weights`` is emptied), so a swap-out frees the card."""
+    import torch
+    from repro_torch.core import LegalityError
+    from repro_torch.kernels import common
+    from repro_torch.launch.serve import virtual_server
+    from repro_torch.obs import ObsHub
+    from repro_torch.serving import ModelRegistry, MuxEngine
+    names = ["qwen1.5-0.5b", "recurrentgemma-2b", "rwkv6-7b"]
+    prompts, solo = {}, {}
+    for i, name in enumerate(names):
+        cfg, model, params = weights[name]
+        prompts[name] = [(p, 32, 0.0) for p, _, _ in
+                         make_requests(cfg.vocab, 2, seed=30 + i)]
+        solo[name] = serve(cfg, model, params, prompts[name], 32, batch=2,
+                           engine_kw={"state_paging": True})[1]
+    obs = ObsHub(enabled=True)
+    vmm, _ = virtual_server(device, "hybrid")
+    try:
+        reg = ModelRegistry(loader=vmm.loader, obs=obs)
+        for name in names:
+            cfg, model, params = weights.pop(name)
+            t0 = time.perf_counter()
+            e = reg.register(name, cfg=cfg, model=model, params=params,
+                             device=device)
+            del params
+            log(f"[mux] registered {name}: {e.param_bytes} B of weights, "
+                f"crc {e.bitfile.crc}, register (CRC over every weight "
+                f"byte) {time.perf_counter() - t0:.2f}s")
+        mux = MuxEngine(reg, names, batch_per_model=2, capacity=256,
+                        page_size=16, chunk_tokens=32, obs=obs)
+        for name in names:
+            mux.bind(f"tenant-{name}", name)
+        for i in range(2):
+            for name in names:
+                p, n, t = prompts[name][i]
+                mux.submit(p, tenant=f"tenant-{name}", max_new_tokens=n,
+                           temperature=t)
+        common.reset_launches()
+        t0 = time.perf_counter()
+        finished = mux.run_round()
+        wall = time.perf_counter() - t0
+        count_path("mux", dict(common.LAUNCHES), launches)
+        log(f"[mux] launches={dict(common.LAUNCHES)}")
+
+        def ordered(done):
+            return [r.out_tokens for r in sorted(done, key=lambda r: r.rid)]
+
+        first = {n: ordered(finished[n]) for n in names}
+        log(f"[mux] 3 families, 6 requests interleaved in {wall:.3f}s: ids "
+            f"vs solo runs: "
+            + ", ".join(f"{n} {'identical' if first[n] == solo[n] else 'DIFFER'}"
+                        for n in names))
+        if first != solo:
+            raise AssertionError("mux: ids differ from the solo runs")
+        reg.max_resident = 1
+
+        def serve_one(name):
+            p, n, t = prompts[name][0]
+            mux.submit(p, tenant=f"tenant-{name}", max_new_tokens=n,
+                       temperature=t)
+            if ordered(mux.run_round()[name])[0] != solo[name][0]:
+                raise AssertionError(f"mux: {name} ids differ after churn")
+
+        for name in names:
+            serve_one(name)
+        st = reg.stats()
+        swaps_in = sum(m["swap_ins"] for m in st["models"].values())
+        swaps_out = sum(m["swap_outs"] for m in st["models"].values())
+        log(f"[mux] churn under max_resident=1: ids identical to solo; "
+            f"swap_ins={swaps_in} swap_outs={swaps_out} crc_checks="
+            f"{st['crc_checks']} crc_failures={st['crc_failures']}")
+        if swaps_in < 2 or swaps_out < 2 or st["crc_failures"] != 0:
+            raise AssertionError("mux: churn gates failed")
+        victim = min((n for n in names if not reg.residency()[n]),
+                     key=lambda n: reg[n].param_bytes)
+        byte = reg[victim].host_params["tok_embed"].view(torch.uint8).view(-1)
+        byte[0] ^= 1                                   # one flipped bit
+        try:
+            reg.params(victim)
+        except LegalityError as exc:
+            log(f"[mux] flipped byte in {victim}'s host copy refused: {exc}")
+        else:
+            raise AssertionError("mux: corrupted host copy was loaded")
+        fails = reg.stats()["crc_failures"]
+        log(f"[mux] crc_failures={fails} (registry), "
+            f"{vmm.stats()['crc_failures']} (VMM stats, shared loader)")
+        if fails != 1 or vmm.stats()["crc_failures"] != 1:
+            raise AssertionError("mux: the CRC failure was not counted once")
+        byte[0] ^= 1                       # restored: it loads and serves
+        serve_one(victim)
+        st = reg.stats()
+        hist = obs.registry.snapshot()["histograms"]
+        for name in names:
+            m = st["models"][name]
+            si = hist.get("model_swap_in_s", {})
+            so = hist.get("model_swap_out_s", {})
+            key = next((k for k in si if name in k), None)
+            okey = next((k for k in so if name in k), None)
+            s_in = si[key]["p50"] if key else float("nan")
+            s_out = so[okey]["p50"] if okey else float("nan")
+            log(f"[mux] {name}: {m['param_bytes']} B; swap in/out "
+                f"{m['swap_ins']}/{m['swap_outs']}; model_swap_in_s p50 "
+                f"{s_in:.3f}s ({m['param_bytes'] / s_in / 1e9:.2f} GB/s, "
+                f"CRC of every byte included), model_swap_out_s p50 "
+                f"{s_out:.3f}s ({m['param_bytes'] / s_out / 1e9:.2f} GB/s)")
+        if st["crc_failures"] != 1:
+            raise AssertionError("mux: the restored copy failed its CRC")
+        for g in mux.stats()["groups"].values():
+            e = g["engine"]
+            if e["pages_leased"] != e["pages_freed"] or \
+                    e["state_pages_leased"] != e["state_pages_freed"]:
+                raise AssertionError("mux: pages leased != freed")
+    finally:
+        vmm.shutdown()
+    del reg, mux
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2083,10 +2596,9 @@ def main():
     check_kernels(device, errs)
     phase_done("kernels")
 
-    cfg = get_config("qwen1.5-0.5b")
-    model = Model(cfg, device)
-    params = model.compute_params(
-        model.init(torch.Generator(device=device).manual_seed(0)))
+    weights = build_weights(device)
+    phase_done("weights")
+    cfg, model, params = weights["qwen1.5-0.5b"]
     requests = make_requests(cfg.vocab)
     launches, modes, native = {}, {}, {}
     for mode in ("monolithic", "chunked"):
@@ -2101,16 +2613,24 @@ def main():
         virt[mode] = virtualized_phase(mode, policy, cfg, model, params,
                                        requests, native[mode], launches)
     del params, model
-    torch.cuda.empty_cache()
     phase_done("serve qwen")
-    modes.update(recurrent_serve_phases(device, launches))
+    rmodes, rvirt = recurrent_serve_phases(device, launches, weights)
+    modes.update(rmodes)
     phase_done("serve recurrent")
 
     vmm_programs_phase(device, launches)
+    served_b4 = {}
+    for arch, short, depth in RECURRENT_ARCHS:
+        served_b4[short] = recurrent_programs_phase(
+            device, launches, weights, arch, short, depth)
     reference_phase(device)
     recurrent_reference_phase(device)
     program_reference_phase(device)
     phase_done("VMM programs and references")
+    kv_hierarchy_phase(device, launches, weights)
+    phase_done("kv-hierarchy")
+    mux_phase(device, launches, weights)
+    phase_done("mux")
     apps_phase(device, launches)
     phase_done("apps")
 
@@ -2148,6 +2668,18 @@ def main():
             f"engine step p50 {r['step_p50_ms']:.3f} ms (native "
             f"{modes[mode]['step_p50_ms']:.3f} ms, ratio "
             f"{r['step_p50_ms'] / modes[mode]['step_p50_ms']:.3f})")
+    for short, r in rvirt.items():
+        nat = modes[f"{short}-chunked"]["step_p50_ms"]
+        log(f"[time:{short}-virtualized-chunked] {r['tok_s']:.1f} tok/s "
+            f"over the run; engine step p50 {r['step_p50_ms']:.3f} ms "
+            f"(native {nat:.3f} ms, ratio {r['step_p50_ms'] / nat:.3f})")
+    for short, r in served_b4.items():
+        micro = times[f"{r['kernel']}@B4S4096"]["ms"] \
+            if f"{r['kernel']}@B4S4096" in times else None
+        log(f"[time:{short}-vmm-programs] {r['kernel']} at B=4 S=4096 on "
+            f"the prefill program's path: {fmt_ms(r['rec_ms_b4'])} device ms "
+            f"a call (micro-timing: "
+            + (f"{micro:.4f} ms)" if micro is not None else "none)"))
 
     rows = [{"name": name, "route": "cuda", **KERNELS[name],
              "launches": launches.get(name, 0),

@@ -19,11 +19,14 @@ leaf (an ``ml_dtypes`` array on the JAX side) crosses as its raw bits; on
 the way back it stays bits (``uint16``), since the port does not depend
 on ``ml_dtypes``.
 
-Ring caches cross the same way: the reference's ``init_cache``/
-``prefill`` caches of an attention stack are ``[[{"mixer": {"k", "v"}}]]``
-with leaves stacked (L, B, C, Hkv, hd); the port's are ``{"k", "v"}`` of
-that shape. Paged serving states (K/V pools and per-slot rows) cross
-through :func:`state_rows_from_jax` / :func:`state_rows_to_numpy`.
+Ring caches and paged serving states cross the same way. The
+reference's are the segment structure of its layout (a scan segment's
+leaves stacked on the periods axis, an unrolled one per layer), each
+layer ``{"mixer": ..., "ffn": ...}``; the port's are ``"k"``/``"v"``
+stacked over the attention layers — (La, B, C, Hkv, hd) rings or
+(La, P, ps, Hkv, hd) pools — and ``"rows"``, one dict of batch rows per
+layer (:func:`caches_from_jax` / :func:`caches_to_numpy`,
+:func:`state_rows_from_jax` / :func:`state_rows_to_numpy`).
 """
 from __future__ import annotations
 
@@ -57,10 +60,19 @@ def _to_numpy(tree):
     return t.numpy()
 
 
-def _stack(*leaves):
+def _stack(*leaves, join=torch.stack):
     if isinstance(leaves[0], dict):
-        return {k: _stack(*(lf[k] for lf in leaves)) for k in leaves[0]}
-    return torch.stack(leaves)
+        return {k: _stack(*(lf[k] for lf in leaves), join=join)
+                for k in leaves[0]}
+    return join(leaves)
+
+
+class Stacked:
+    """A stacked leaf of the reference's layout kept as its layers'
+    tensors (no stacked copy is made): ``parts[j]`` is period ``j``."""
+
+    def __init__(self, parts):
+        self.parts = tuple(parts)
 
 
 def _cpu(tree):
@@ -88,22 +100,25 @@ def params_from_jax(tree, device="cpu"):
     return out
 
 
-def stacked_layout(params, cfg=None):
-    """Port parameters → the JAX pytree layout with CPU tensor leaves.
-    ``cfg`` gives the reference's segment layout; without it the layers
-    are stacked as one scan segment of one layer kind (attention-only
-    stacks)."""
-    layers = [_cpu(p) for p in params["layers"]]
-    out = {k: _cpu(v) for k, v in params.items() if k != "layers"}
+def stacked_layout(params, cfg=None, join=torch.stack):
+    """Port parameters → the JAX pytree layout. ``cfg`` gives the
+    reference's segment layout; without it the layers are stacked as one
+    scan segment of one layer kind (attention-only and rwkv6 stacks).
+    With the default ``join`` the leaves are CPU tensors; with
+    ``join=Stacked`` they stay where they are and a scan site's leaf is a
+    :class:`Stacked` of its layers' tensors."""
+    copy = _cpu if join is torch.stack else (lambda t: t)
+    layers = [copy(p) for p in params["layers"]]
+    out = {k: copy(v) for k, v in params.items() if k != "layers"}
     if cfg is None:
-        out["segments"] = [[_stack(*layers)]]
+        out["segments"] = [[_stack(*layers, join=join)]]
         return out
     segs = []
     for si, li, idx, _, scan in lm.layout_layers(cfg, lm.layer_specs(cfg)):
         if si == len(segs):
             segs.append([])
-        segs[si].append(_stack(*(layers[i] for i in idx)) if scan
-                        else layers[idx[0]])
+        segs[si].append(_stack(*(layers[i] for i in idx), join=join)
+                        if scan else layers[idx[0]])
     out["segments"] = segs
     return out
 
@@ -114,18 +129,23 @@ def params_to_numpy(params, cfg=None):
     return _to_numpy(stacked_layout(params, cfg))
 
 
-def caches_from_jax(caches, device="cpu"):
-    """Reference ring caches ``[[{"mixer": {"k","v"}}]]`` (numpy leaves,
-    stacked (L,B,C,Hkv,hd)) → the port's ``{"k","v"}``."""
-    if len(caches) != 1 or len(caches[0]) != 1:
-        raise NotImplementedError("bridge: one scan segment of attn layers")
-    return _to_torch(caches[0][0]["mixer"], device)
+def caches_from_jax(caches, cfg, device="cpu"):
+    """Reference ring caches (``init_cache`` / ``prefill(capacity=)``,
+    numpy leaves, every segment of ``cfg``'s layout) → the port's:
+    ``"k"``/``"v"`` when the stack has attention layers, ``"rows"`` when
+    it has recurrent ones."""
+    out = state_rows_from_jax(caches, cfg, device)
+    if not any(s.is_attn for s in lm.layer_specs(cfg)):
+        del out["k"], out["v"]
+    if not any(out["rows"]):
+        del out["rows"]
+    return out
 
 
-def caches_to_numpy(caches):
+def caches_to_numpy(caches, cfg):
     """Inverse of :func:`caches_from_jax`: the port's ring caches → the
-    reference's ``[[{"mixer": {"k","v"}}]]`` with numpy leaves."""
-    return [[{"mixer": _to_numpy(caches)}]]
+    reference's segment structure with numpy leaves."""
+    return state_rows_to_numpy(caches, cfg)
 
 
 def state_rows_from_jax(state, cfg, device="cpu"):
@@ -168,7 +188,8 @@ def state_rows_to_numpy(state, cfg):
             segs.append([])
         per_layer = []
         for layer in idx:
-            site = {k: _cpu(v) for k, v in state["rows"][layer].items()}
+            rows = state["rows"][layer] if "rows" in state else {}
+            site = {k: _cpu(v) for k, v in rows.items()}
             if spec.is_attn:
                 site["mixer"] = {kk: _cpu(state[kk][aidx[layer]])
                                  for kk in ("k", "v")}

@@ -80,27 +80,39 @@ class Bitfile:
         return self.crc == self._compute_crc()
 
 
-def weights_fingerprint(params) -> str:
+def weights_fingerprint(params, cfg) -> str:
     """Content hash of a weights tree — leaf paths, shapes, dtypes and
     bytes, over the reference's layout and JAX key-path strings
     (``['segments'][0][0]['mixer']['wq']``), so the same weights give the
-    same hash in both packages. bf16 leaves hash their raw bytes under
-    the dtype name ``bfloat16``. This is the ``slice_fingerprint`` of a
+    same hash in both packages. ``cfg`` gives the reference's segment
+    layout of the port's parameters (recurrentgemma's scan segment and
+    unrolled tail); a tree that is not the port's parameters (no
+    ``"layers"``) is hashed as it is, as the reference hashes any tree.
+    bf16 leaves hash their raw bytes under the dtype name ``bfloat16``.
+    A stacked leaf is hashed layer by layer (the bytes of a stack are its
+    layers' bytes in order), one layer at a time on the host. This is the ``slice_fingerprint`` of a
     weights-as-bitstream :class:`Bitfile`: the CRC commits to the actual
     parameter bytes."""
-    from repro_torch.bridge import stacked_layout
+    from repro_torch.bridge import Stacked, stacked_layout
     from repro_torch.checkpointing.checkpoint import flatten_with_path
+    tree = stacked_layout(params, cfg, join=Stacked) \
+        if "layers" in params else params
     h = hashlib.blake2b(digest_size=8)
-    for path, leaf in flatten_with_path(stacked_layout(params)):
-        if leaf.dtype == torch.bfloat16:
-            raw, name = leaf.view(torch.int16).numpy(), "bfloat16"
-        else:
-            raw = leaf.numpy()
-            name = str(raw.dtype)
+    for path, leaf in flatten_with_path(tree):
+        parts = leaf.parts if isinstance(leaf, Stacked) else (leaf,)
+        shape = tuple(parts[0].shape)
+        if isinstance(leaf, Stacked):
+            shape = (len(parts),) + shape
+        name = "bfloat16" if parts[0].dtype == torch.bfloat16 else \
+            str(torch.empty((), dtype=parts[0].dtype).numpy().dtype)
         h.update(keystr(path).encode())
-        h.update(str(tuple(leaf.shape)).encode())
+        h.update(str(shape).encode())
         h.update(name.encode())
-        h.update(raw.tobytes())
+        for part in parts:
+            t = part.detach().contiguous().cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            h.update(t.numpy())
     return h.hexdigest()
 
 
@@ -162,7 +174,7 @@ class CompileService:
         step, abstract_args = self._build(cfg, device, cell)
         if getattr(device, "type", None) == "cuda":
             from repro_torch.kernels import common
-            for name in step_kernels(req.kind):
+            for name in step_kernels(req.kind, cfg):
                 common.library(name)          # nvcc at first use, then load
         dt = max(time.perf_counter() - t0, 1e-9)
         bf = Bitfile(req.program_key, vslice.topology_key,

@@ -10,6 +10,13 @@ KV cache, on the card unless ``--device cpu`` is given.
     ... --device cpu        # plain PyTorch versions of the kernels
     ... --virtualized --policy {fev,bev,hybrid,wfq,slo} [--slo-ms 50]
                             # every step through a VMM tenant's data plane
+    ... --chunk-tokens 8 --share-prefix [--swap]
+                            # the KV page hierarchy: prefix sharing with
+                            # copy-on-write (attention-only families),
+                            # the host swap tier
+    ... --models qwen1.5-0.5b,rwkv6-7b,recurrentgemma-2b --max-resident 1
+                            # the model mux: several families on one
+                            # pool, idle weights hot-swapped to the host
 
 Requests are submitted with varying prompt lengths and token budgets;
 the engine admits them into batch slots as earlier requests finish —
@@ -47,6 +54,28 @@ def main(argv=None):
                     help="chunked prefill budget per engine step (0 = "
                          "monolithic admission); also switches decode to "
                          "the fused attention+sampling step")
+    ap.add_argument("--share-prefix", action="store_true",
+                    help="refcounted prompt-prefix sharing: requests "
+                         "with a common prompt prefix map the same KV "
+                         "pages and skip prefill for the shared span "
+                         "(requires --chunk-tokens; attention-only "
+                         "families)")
+    ap.add_argument("--swap", action="store_true",
+                    help="host-memory KV swap tier: under admission "
+                         "pressure a victim slot's pages move to host "
+                         "memory instead of the newcomer being deferred "
+                         "(requires --chunk-tokens)")
+    ap.add_argument("--models", default="",
+                    help="comma-separated archs for multi-model serving "
+                         "on one shared pool (model multiplexing plane); "
+                         "overrides --arch and ignores --virtualized")
+    ap.add_argument("--max-resident", type=int, default=0,
+                    help="with --models: weight-residency budget — idle "
+                         "families past this count hot-swap their "
+                         "weights to the host tier (0 = unlimited)")
+    ap.add_argument("--mux-pool-pages", type=int, default=0,
+                    help="with --models: shared MMU pool size in pages "
+                         "(0 = auto-size so every family fits)")
     ap.add_argument("--full", action="store_true",
                     help="full-width config (default: the reduced one)")
     ap.add_argument("--metrics", action="store_true",
@@ -59,6 +88,8 @@ def main(argv=None):
     ap.add_argument("--slo-ms", type=float, default=50.0,
                     help="per-op wait budget for --policy slo")
     args = ap.parse_args(argv)
+    if (args.share_prefix or args.swap) and args.chunk_tokens <= 0:
+        ap.error("--share-prefix and --swap require --chunk-tokens")
 
     from repro_torch.configs import get_config
     from repro_torch.models import Model, resolve_device
@@ -69,14 +100,20 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     obs = ObsHub(enabled=args.metrics)
+    if args.models:
+        return serve_mux(args, device, obs)
     cfg = get_config(args.arch, reduced=not args.full)
     model = Model(cfg, device=device)
+    if args.share_prefix and model.state_row_bytes() > 0:
+        ap.error(f"--share-prefix: {args.arch} keeps recurrent state rows, "
+                 f"which a shared prefix's KV pages do not carry")
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = model.compute_params(model.init(gen))
     vmm = None
     kw = dict(page_size=args.page_size, obs=obs, obs_tenant="server",
-              chunk_tokens=args.chunk_tokens, state_paging=True)
+              chunk_tokens=args.chunk_tokens, state_paging=True,
+              share_prefix=args.share_prefix, swap=args.swap)
     if args.virtualized:
         vmm, tenant = virtual_server(device, args.policy, args.slo_ms, obs)
         kw.update(virtualized_engine_kw(tenant))
@@ -111,6 +148,12 @@ def main(argv=None):
           f"faults, {s.pages_leased} pages leased / {s.pages_freed} freed, "
           f"{s.state_pages_leased} state pages leased / "
           f"{s.state_pages_freed} freed, {s.deferred} deferred")
+    if args.share_prefix or args.swap:
+        print(f"[serve] kv hierarchy: {s.shared_prefix_hits} warm "
+              f"admissions ({s.shared_prefix_tokens} shared tokens), "
+              f"{s.cow_forks} CoW forks, {s.swap_outs} pages swapped / "
+              f"{s.swap_ins} refaulted, {s.state_swap_outs} state pages "
+              f"parked / {s.state_swap_ins} refaulted")
     print(f"[serve] kv memory: {engine.kv.memory_stats()}")
     if args.metrics:
         for name, ts in obs.tracer.snapshot()["tenants"].items():
@@ -126,6 +169,61 @@ def main(argv=None):
         print("[serve] vmm stats:", vmm.stats())
         vmm.shutdown()
     return engine
+
+
+def serve_mux(args, device, obs):
+    """``--models``: several model families as registered bitstreams on
+    one shared pool, a tenant bound to each, requests interleaved."""
+    from repro_torch.serving import ModelRegistry, MuxEngine
+
+    names = [n.strip() for n in args.models.split(",") if n.strip()]
+    reg = ModelRegistry(obs=obs, max_resident=args.max_resident or None)
+    for name in names:
+        reg.register(name, reduced=not args.full, device=device,
+                     seed=args.seed)
+    mux = MuxEngine(reg, names, batch_per_model=args.batch,
+                    capacity=args.capacity, page_size=args.page_size,
+                    chunk_tokens=max(args.chunk_tokens, 8),
+                    pool_pages=args.mux_pool_pages or None, obs=obs)
+    rng = np.random.default_rng(args.seed)
+    for i, name in enumerate(names):
+        mux.bind(f"tenant{i}", name)
+    for i in range(args.requests):
+        name = names[i % len(names)]
+        plen = args.prompt_len + int(rng.integers(0, 8))
+        prompt = rng.integers(0, reg[name].cfg.vocab, size=(plen,))
+        mux.submit(prompt, tenant=f"tenant{names.index(name)}",
+                   max_new_tokens=max(1, args.max_new - 4 * (i % 3)))
+    t0 = time.perf_counter()
+    finished = mux.run_round()
+    dt = time.perf_counter() - t0
+    s = mux.stats()
+    total = sum(g["tokens"] for g in s["groups"].values())
+    print(f"[mux] device {device}: {len(names)} families, "
+          f"{sum(len(v) for v in finished.values())} requests, "
+          f"{total} tokens in {dt:.2f}s "
+          f"({total / max(dt, 1e-9):.1f} tok/s)")
+    for name, g in s["groups"].items():
+        e = g["engine"]
+        print(f"[mux] {name}: {g['completed']} done, {g['tokens']} tok "
+              f"in {g['active_s']:.2f}s active; "
+              f"pages {e['pages_leased']}/{e['pages_freed']} "
+              f"state {e['state_pages_leased']}/{e['state_pages_freed']} "
+              f"swaps kv={e['swap_outs']}/{e['swap_ins']} "
+              f"state={e['state_swap_outs']}/{e['state_swap_ins']}")
+    r = s["registry"]
+    print(f"[mux] registry: {r['resident']}/{len(names)} resident "
+          f"(budget {r['max_resident']}), crc {r['crc_checks']} checks / "
+          f"{r['crc_failures']} failures")
+    for name, m in r["models"].items():
+        print(f"[mux]   {name}: resident={m['resident']} "
+              f"swap in/out={m['swap_ins']}/{m['swap_outs']} "
+              f"({m['param_bytes'] / 1e6:.1f} MB, crc {m['crc']})")
+    print(f"[mux] pool: {s['pool']}")
+    if args.metrics:
+        print("[obs] prometheus exposition:")
+        print(obs.prometheus())
+    return mux
 
 
 def virtual_server(device, policy="hybrid", slo_ms=50.0, obs=None):

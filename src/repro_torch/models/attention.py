@@ -135,14 +135,18 @@ def position_vector(pos, device):
     return torch.tensor([int(pos)], dtype=torch.long, device=device)
 
 
-def attn_decode(cfg, p, x1, cache, pos, pvec):
+def attn_decode(cfg, p, x1, cache, pos, pvec, window=0):
     """x1 (B,1,D); cache ring {"k","v"} (B,C,Hkv,hd) — **updated in
     place**: the new token's K/V are written at slot ``pos % C`` with
     ``index_copy_`` on a device index (no host sync), then the token
     attends over the ``min(pos+1, C)`` valid slots through the ring
-    decode op. ``pos`` is the shared position (int or 0-d int32 tensor,
-    handed to the kernel as is); ``pvec`` the same as a (1,) int64
-    tensor. Returns y (B,1,D)."""
+    decode op, within ``window`` when it is > 0 (reference
+    ``attention.py:283``). A ring of C <= window (what ``init_cache`` and
+    ``prefill(capacity=)`` give a ``swa`` layer) already holds only the
+    window; the window still reaches the op, since a reference cache
+    carried over by the bridge keeps ``capacity`` slots. ``pos`` is the
+    shared position (int or 0-d int32 tensor, handed to the kernel as
+    is); ``pvec`` the same as a (1,) int64 tensor. Returns y (B,1,D)."""
     C = cache["k"].shape[1]
     q, k, v = _project_qkv(cfg, p, x1)
     q = apply_rope(q, pvec, cfg.rope_theta)
@@ -150,7 +154,8 @@ def attn_decode(cfg, p, x1, cache, pos, pvec):
     slot = torch.remainder(pvec, C)
     cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
     cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-    o = decode_attention_op(q.contiguous(), cache["k"], cache["v"], pos)
+    o = decode_attention_op(q.contiguous(), cache["k"], cache["v"], pos,
+                            window=window)
     return _out_proj(cfg, p, o)
 
 

@@ -22,9 +22,13 @@ Paged serving state is a dict:
   updates the live slots' rows in place; a dead slot (position -1) keeps
   its rows, and a prefill chunk reads and writes only its own slot's.
 
-Contiguous ring caches (the VMM's decode programs) are one stacked
-tensor per K and V, ``(L, B, C, Hkv, hd)``, for attention-only stacks;
-decode writes each layer's slice in place.
+Contiguous ring caches (``Model.prefill(capacity=)``, ``init_cache`` and
+``decode``: the VMM's programs) have the same form: ``"k"``, ``"v"``
+stacked over the attention layers, ``(La, B, C, Hkv, hd)`` — C the
+capacity for ``attn``, ``min(window, capacity)`` for ``swa`` — and
+``"rows"`` for the recurrent leaves; a key is absent when no layer has
+such a leaf. Decode writes each layer's ring slot and every row in
+place.
 """
 from __future__ import annotations
 
@@ -171,13 +175,39 @@ def init_paged_state(cfg, specs, batch, num_pages, page_size, device):
             "rows": [init_layer_rows(cfg, s, batch, device) for s in specs]}
 
 
+def ring_capacity(cfg, specs, capacity):
+    """Slots of the attention layers' rings: ``capacity`` for ``attn``,
+    ``min(window, capacity)`` for ``swa`` (reference ``lm.py:121``); None
+    for a stack without attention. The port stacks the rings of all
+    attention layers, so they must agree (every configuration of the
+    repo has one attention kind)."""
+    caps = {capacity if s.mixer == "attn" else min(cfg.window, capacity)
+            for s in specs if s.is_attn}
+    if len(caps) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: ring caches of attn beside swa layers (capacities "
+            f"{sorted(caps)}) are not ported")
+    return caps.pop() if caps else None
+
+
 def init_stack_cache(cfg, specs, batch, capacity, device):
-    """Zeroed ring caches {"k","v"}: (L, B, C, Hkv, hd) in the compute
-    dtype (attention-only stacks)."""
-    shape = (len(specs), batch, capacity, cfg.n_kv_heads, cfg.d_head)
-    cd = dt(cfg.compute_dtype)
-    return {"k": torch.zeros(shape, dtype=cd, device=device),
-            "v": torch.zeros(shape, dtype=cd, device=device)}
+    """Zeroed ring caches of any stack (reference ``lm.py:116-141``,
+    ``:361-375``): ``"k"``/``"v"`` (La, B, C, Hkv, hd) in the compute dtype
+    over the attention layers (C from :func:`ring_capacity`) and
+    ``"rows"`` — the per-layer rows of :func:`init_layer_rows` — when a
+    layer is recurrent."""
+    caches = {}
+    C = ring_capacity(cfg, specs, capacity)
+    if C is not None:
+        n_attn = sum(s.is_attn for s in specs)
+        shape = (n_attn, batch, C, cfg.n_kv_heads, cfg.d_head)
+        cd = dt(cfg.compute_dtype)
+        caches["k"] = torch.zeros(shape, dtype=cd, device=device)
+        caches["v"] = torch.zeros(shape, dtype=cd, device=device)
+    rows = [init_layer_rows(cfg, s, batch, device) for s in specs]
+    if any(rows):
+        caches["rows"] = rows
+    return caches
 
 
 def write_prefill_to_state(state, caches, slot, block_row, length,
@@ -197,6 +227,49 @@ def write_prefill_to_state(state, caches, slot, block_row, length,
         for key, leaves in src.items():
             for name, leaf in leaves.items():
                 dst[key][name][slot] = leaf[0]
+    return state
+
+
+def copy_kv_page_in_state(state, src, dst):
+    """Device-side page copy ``dst ← src`` across every attention layer's
+    K/V pool, in place — the copy-on-write byte move (the MMU's
+    ``fork_page`` swaps the mapping, this copies the bytes). ``src`` and
+    ``dst`` are (1,) int64 tensors on the pools' device, so the fork
+    needs no host sync."""
+    for kk in ("k", "v"):
+        state[kk].index_copy_(1, dst, state[kk].index_select(1, src))
+    return state
+
+
+def _kv_page_sites(cfg, specs):
+    """Yield ``(pool indices, scan)`` per attention site of the
+    reference's layout — a scan site stacks its layers' pages."""
+    aidx = attn_index(specs)
+    for _, _, layers, spec, scan in layout_layers(cfg, specs):
+        if spec.is_attn:
+            yield [aidx[li] for li in layers], scan
+
+
+def gather_kv_page(cfg, specs, state, page):
+    """Physical page ``page`` of every K/V pool → flat leaf list in the
+    reference's order (``lm.py:485``: layout site by site, k then v; a
+    scan site's leaf is (n, ps, Hkv, hd), an unrolled one (ps, Hkv, hd))
+    — the swap tier's device→host read."""
+    leaves = []
+    for idx, scan in _kv_page_sites(cfg, specs):
+        for kk in ("k", "v"):
+            leaf = state[kk][idx, page]          # a copy (list index)
+            leaves.append(leaf if scan else leaf[0])
+    return leaves
+
+
+def scatter_kv_page(cfg, specs, state, page, leaves):
+    """Inverse of :func:`gather_kv_page`, in place — the refault write."""
+    it = iter(leaves)
+    for idx, scan in _kv_page_sites(cfg, specs):
+        for kk in ("k", "v"):
+            src = next(it).to(state[kk].dtype)
+            state[kk][idx, page] = src if scan else src[None]
     return state
 
 
@@ -251,12 +324,31 @@ def apply_layer_full(cfg, spec, p, x, positions, capacity=0):
     return x + y2.to(x.dtype), kv, rows
 
 
-def apply_layer_decode_ring(cfg, p, x, cache, pos, pvec):
+def _copy_rows(rows, new):
+    """Ring decode: every slot is live, so each row leaf takes its new
+    value in place."""
+    for name, leaf in rows.items():
+        leaf.copy_(new[name].to(leaf.dtype))
+
+
+def apply_layer_decode_ring(cfg, spec, p, x, cache, rows, pos, pvec):
     h = apply_norm(cfg, p["norm1"], x)
-    y = attn.attn_decode(cfg, p["mixer"], h, cache, pos, pvec)
+    if spec.is_attn:
+        y = attn.attn_decode(cfg, p["mixer"], h, cache, pos, pvec,
+                             window=_window(cfg, spec))
+    else:
+        step = rec.rglru_decode if spec.mixer == "rglru" \
+            else rec.rwkv_tmix_decode
+        y, mc = step(cfg, p["mixer"], h, rows["mixer"])
+        _copy_rows(rows["mixer"], mc)
     x = x + y.to(x.dtype)
     h2 = apply_norm(cfg, p["norm2"], x)
-    return x + apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+    if spec.ffn == "channelmix":
+        y2, fc = rec.channelmix_decode(cfg, p["ffn"], h2, rows["ffn"])
+        _copy_rows(rows["ffn"], fc)
+    else:
+        y2 = apply_ffn(cfg, p["ffn"], h2)
+    return x + y2.to(x.dtype)
 
 
 def apply_layer_decode(cfg, spec, p, x, pools, rows, positions,
@@ -322,9 +414,15 @@ def _pools(state, a):
 
 def apply_stack_full(cfg, specs, layers, x, positions, capacity=0):
     """→ (x, caches): ``{"k","v"}`` stacked (La, B, C, Hkv, hd) over the
-    attention layers (C = capacity or S) when there are any, and
-    ``"rows"`` (per layer, batch rows) when any layer has rows."""
+    attention layers when there are any — C = S with no ``capacity``,
+    else the rings of :func:`init_stack_cache` (a ``swa`` layer keeps its
+    last ``min(window, capacity)`` tokens, where the reference keeps
+    ``capacity`` and masks all but the window at decode: the same tokens
+    are read) — and ``"rows"`` (per layer, batch rows) when any layer
+    has rows."""
     ks, vs, rows = [], [], []
+    if capacity:
+        capacity = ring_capacity(cfg, specs, capacity) or capacity
     for spec, p in zip(specs, layers):
         x, kv, r = apply_layer_full(cfg, spec, p, x, positions, capacity)
         if kv is not None:
@@ -339,12 +437,14 @@ def apply_stack_full(cfg, specs, layers, x, positions, capacity=0):
     return x, caches
 
 
-def apply_stack_decode_ring(cfg, layers, x, caches, pos):
-    """One token through every layer against ring caches {"k","v"}
-    (L, B, C, Hkv, hd), written in place at slot ``pos % C``."""
-    pvec = attn.position_vector(pos, x.device)         # once per step
-    for li, p in enumerate(layers):
-        x = apply_layer_decode_ring(cfg, p, x, _pools(caches, li), pos, pvec)
+def apply_stack_decode_ring(cfg, specs, layers, x, caches, pos, pvec):
+    """One token through every layer against the ring caches of
+    :func:`init_stack_cache`, updated in place: K/V at slot ``pos % C``,
+    every recurrent row. ``pvec`` is ``pos`` as a (1,) int64 tensor."""
+    rows = caches.get("rows") or [{}] * len(specs)
+    for spec, p, a, r in zip(specs, layers, attn_index(specs), rows):
+        x = apply_layer_decode_ring(cfg, spec, p, x, _pools(caches, a), r,
+                                    pos, pvec)
     return x
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.decode_attention.ops import sample_tokens_op
+from repro_torch.models import attention as attn
 from repro_torch.models import lm
 from repro_torch.models.layers import (abs_position_vector, add_abs_positions,
                                        apply_norm, dense_init, dt,
@@ -50,7 +51,6 @@ class Model:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.specs = lm.layer_specs(cfg)
-        self.attn_only = all(s.is_attn for s in self.specs)
         if not cfg.use_rope and any(s.is_attn for s in self.specs):
             raise NotImplementedError(
                 f"{cfg.name}: attention with absolute positions is not "
@@ -142,17 +142,19 @@ class Model:
     def decode(self, params, caches, token, pos):
         """token (B,1) int; pos the shared position (int or 0-d int32
         tensor on the caches' device) → (logits (B, V*), caches), the
-        caches updated in place at slot ``pos % C``. Attention-only
-        stacks (the recurrent families' ring decode is not ported yet)."""
-        self._require_attn_only("decode on ring caches")
-        x = self._embed_tokens(params, token)
-        x = lm.apply_stack_decode_ring(self.cfg, params["layers"], x,
-                                       caches, pos)
+        caches updated in place: K/V at ring slot ``pos % C``, every
+        recurrent row."""
+        pvec = attn.position_vector(pos, token.device)   # once per step
+        x = self._embed_tokens(params, token, pvec[None])
+        x = lm.apply_stack_decode_ring(self.cfg, self.specs,
+                                       params["layers"], x, caches, pos,
+                                       pvec)
         return self._lm_logits(params, x[:, -1:])[:, 0], caches
 
     def init_cache(self, batch_size, capacity):
-        """Zeroed ring caches {"k","v"}: (L, B, C, Hkv, hd)."""
-        self._require_attn_only("ring caches")
+        """Zeroed ring caches of ``capacity`` slots (a ``swa`` layer's
+        ring holds ``min(window, capacity)``) and, for recurrent layers,
+        zeroed rows — the form ``prefill(capacity=)`` returns."""
         return lm.init_stack_cache(self.cfg, self.specs, batch_size,
                                    capacity, self.device)
 
@@ -175,12 +177,6 @@ class Model:
     # ------------------------------------------------------------------
     # Paged serving path (MMU-backed KV pages; see serving/paged_kv.py)
     # ------------------------------------------------------------------
-    def _require_attn_only(self, what):
-        if not self.attn_only:
-            raise NotImplementedError(
-                f"{self.cfg.name}: {what} for recurrent layers is not "
-                "ported yet")
-
     def init_paged_state(self, batch_size, num_pages, page_size):
         """Serving state: K/V page pools (La, P, ps, Hkv, hd) over the
         attn/swa layers, per-slot rows of ``batch_size`` slots for every
@@ -236,6 +232,24 @@ class Model:
         if noise is None:
             noise = self.gumbel_noise(logits.shape, step)
         return sample_tokens_op(logits, temps, noise), state
+
+    def copy_kv_page(self, state, src, dst):
+        """Device-side page copy ``dst ← src`` across every K/V pool, in
+        place — the copy-on-write byte move paired with
+        ``SegmentPool.fork_page``. src/dst are (1,) int64 device
+        tensors."""
+        return lm.copy_kv_page_in_state(state, src, dst)
+
+    def read_kv_page(self, state, page):
+        """One physical page out of every K/V pool → flat leaf list in
+        the reference's order (the swap tier's device→host read)."""
+        return lm.gather_kv_page(self.cfg, self.specs, state, page)
+
+    def write_kv_page(self, state, page, leaves):
+        """Write a :meth:`read_kv_page` leaf list back into physical
+        page ``page``, in place (the swap tier's refault write)."""
+        return lm.scatter_kv_page(self.cfg, self.specs, state, page,
+                                  leaves)
 
     def kv_page_bytes(self, page_size) -> int:
         """Device bytes one KV page spans across all attn/swa layers — the

@@ -16,13 +16,24 @@ import torch
 
 from repro_torch.models import Model
 
-#: the CUDA kernels each step kind launches (built and loaded at compile)
-STEP_KERNELS = {"prefill": ("flash_attention",),
-                "decode": ("decode_attention",)}
+#: the CUDA kernels a step kind launches for each mixer of the stack
+#: (built and loaded at compile); rwkv's one-token step is plain PyTorch
+STEP_KERNELS = {"prefill": {"attn": "flash_attention",
+                            "swa": "flash_attention",
+                            "rglru": "rglru_scan", "rwkv": "rwkv6_wkv"},
+                "decode": {"attn": "decode_attention",
+                           "swa": "decode_attention"}}
 
 
-def step_kernels(kind: str):
-    return STEP_KERNELS.get(kind, ())
+def step_kernels(kind: str, cfg):
+    """The kernels a ``kind`` step of ``cfg``'s stack launches."""
+    table = STEP_KERNELS.get(kind, {})
+    out = []
+    for mixer in cfg.block_pattern:
+        name = table.get(mixer)
+        if name is not None and name not in out:
+            out.append(name)
+    return tuple(out)
 
 
 def abstract_params(model, dtype_override=None):
@@ -44,7 +55,8 @@ def abstract_params(model, dtype_override=None):
 
 def build_prefill(cfg, device, cell):
     """→ (prefill, abstract_args). prefill(params, batch) → (last
-    logits, ring caches of capacity ``cell.seq_len``)."""
+    logits, ring caches of capacity ``cell.seq_len`` and, for recurrent
+    layers, their rows: the form the decode program takes)."""
     model = Model(cfg, device=device)
     params_abs = abstract_params(model, dtype_override="bfloat16")
     batch_abs = model.input_specs(cell)
@@ -57,8 +69,8 @@ def build_prefill(cfg, device, cell):
 
 def build_decode(cfg, device, cell):
     """→ (decode, abstract_args). decode(params, caches, token, pos) →
-    (logits, caches), the caches updated in place (the reference donates
-    them)."""
+    (logits, caches), the ring caches and recurrent rows updated in
+    place (the reference donates them)."""
     model = Model(cfg, device=device)
     B = cell.global_batch
     params_abs = abstract_params(model, dtype_override="bfloat16")

@@ -21,7 +21,16 @@ Each batch slot owns a *position* and a *block table*:
   their own pages from the same pool at admission
   (:class:`~repro_torch.serving.paged_state.PagedRecurrentState`) and
   free them at finish; in chunked mode a slot's rows are zeroed at
-  admission, since the first chunk reads them as its initial state.
+  admission, since the first chunk reads them as its initial state;
+* the KV page hierarchy rides on chunked prefill: with
+  ``share_prefix=True`` (attention-only families; the cached pages carry
+  no recurrent rows) a warm admission maps the cached pages of its
+  prompt's prefix and starts its prefill cursor past them (the slot's
+  pages are published after its last chunk; a write into a shared page
+  forks it copy-on-write), and with ``swap=True`` admission or decode
+  pressure parks a victim slot — its private KV pages and recurrent rows
+  move to the host tier — and the slot resumes (refaults) once the pool
+  can hold it again.
 
 Host-side sampling (monolithic mode, and the first token after the last
 prefill chunk) uses a seeded numpy RNG, draw for draw as the reference
@@ -50,7 +59,8 @@ from repro_torch.analysis.lock_watchdog import note_callback
 from repro_torch.core.mmu import MMUError
 from repro_torch.obs import (NULL_HUB, PHASE_ADMITTED, PHASE_DECODE,
                              PHASE_DEFERRED, PHASE_PREFILL,
-                             PHASE_PREFILL_CHUNK)
+                             PHASE_PREFILL_CHUNK, PHASE_REFAULT,
+                             PHASE_SWAP_OUT)
 from repro_torch.serving.paged_kv import PagedKVCache
 from repro_torch.serving.paged_state import PagedRecurrentState
 
@@ -81,13 +91,17 @@ class EngineStats:
     pages_leased: int = 0
     pages_freed: int = 0
     page_faults: int = 0
+    # KV page hierarchy (engine-local deltas, same convention as above)
+    shared_prefix_hits: int = 0         # warm admissions (prefix cache)
+    shared_prefix_tokens: int = 0       # prompt tokens covered by sharing
+    cow_forks: int = 0                  # private forks of shared pages
+    swap_outs: int = 0                  # pages evicted to the host tier
+    swap_ins: int = 0                   # pages refaulted back to device
     # paged recurrent state (state_paging=True): per-slot rows' pages
     state_pages_leased: int = 0
     state_pages_freed: int = 0
-    # parked to host / refaulted back: stay 0 until the engine's swap
-    # tier (park/refault) is ported; swap=True raises until then
-    state_swap_outs: int = 0
-    state_swap_ins: int = 0
+    state_swap_outs: int = 0            # state pages parked to host
+    state_swap_ins: int = 0             # state pages refaulted back
 
 
 class ServeEngine:
@@ -99,10 +113,19 @@ class ServeEngine:
                  admission_gate: Optional[Callable] = None,
                  seed: int = 0, obs=None, obs_tenant: str = "serve",
                  chunk_tokens: int = 0, share_prefix: bool = False,
-                 swap: bool = False, state_paging: bool = False):
+                 swap: bool = False, state_paging: bool = False,
+                 owner_prefix: str = ""):
         if extra_batch:
             raise NotImplementedError(
                 "serving: vlm/enc-dec frontends are not ported yet")
+        row_bytes = model.state_row_bytes()
+        if share_prefix and row_bytes > 0:
+            # a warm admission maps only the prefix's KV pages and starts
+            # the cursor past them: the slot's recurrent rows would never
+            # see the shared tokens and decode from a wrong state
+            raise NotImplementedError(
+                "serving: prefix sharing keeps KV pages only; a family "
+                "with recurrent state rows cannot share a prefix")
         self.cfg = cfg
         self.model = model
         self.device = model.device
@@ -114,6 +137,19 @@ class ServeEngine:
         self.admission_gate = admission_gate
         self.chunk_tokens = int(chunk_tokens)
         self._chunked = self.chunk_tokens > 0
+        # sharing and swap ride on chunked prefill: a warm admission
+        # starts the chunk cursor past the shared span, and a parked
+        # slot resumes through the same cursorless decode
+        self._share = share_prefix and self._chunked
+        self._swap = swap and self._chunked
+        self._parked: dict = {}           # slot → saved decode position
+        # slots parked mid-step, after their token was emitted but before
+        # its KV write: on resume that token feeds decode once more for
+        # the write but is not emitted twice
+        self._emitted_parked: set = set()
+        # engines sharing one pool (the model mux) namespace their
+        # request owners, so two rid spaces never meet in one MMU owner
+        self.owner_prefix = owner_prefix
         self.obs = obs if obs is not None else NULL_HUB
         self.obs_tenant = obs_tenant
         if self.obs.enabled:
@@ -137,15 +173,14 @@ class ServeEngine:
         # when the engine sizes its pool AND pages recurrent state, size
         # it for the state rows too (the KV working set alone would leave
         # recurrent-family admissions dead on arrival)
-        row_bytes = model.state_row_bytes()
         extra_pages = 0
         if state_paging and pool is None and row_bytes > 0:
             pb = model.kv_page_bytes(page_size)
             extra_pages = batch_size * max(1, -(-row_bytes // pb))
         self.kv = PagedKVCache(cfg, model, batch_size, capacity,
                                page_size=page_size, pool=pool,
-                               obs=self.obs, share_prefix=share_prefix,
-                               swap=swap, extra_pages=extra_pages)
+                               obs=self.obs, share_prefix=self._share,
+                               swap=self._swap, extra_pages=extra_pages)
         # paged recurrent state: per-slot rows leased from the KV pool;
         # a no-op (None) for attention-only models
         self.rstate = None
@@ -229,23 +264,40 @@ class ServeEngine:
             # chunks fault the rest of the table in incrementally
             lease_len = (min(plen, self.chunk_tokens) if self._chunked
                          else plen)
-            owner = f"req{req.rid}"
+            owner = f"{self.owner_prefix}req{req.rid}"
             n_pages = max(1, -(-lease_len // self.kv.page_size))
             if self.rstate is not None:
                 n_pages += self.rstate.blocks_per_slot
             live = any(s is not None for s in self.slots)
             if self.admission_gate is not None:
                 note_callback("engine.admission_gate")
-            if (self.admission_gate is not None and live
-                    and not self.admission_gate(owner, n_pages)):
+            gated = (self.admission_gate is not None and live
+                     and not self.admission_gate(owner, n_pages))
+            if gated and self._swap and self._swap_out_victim():
+                # swap before deny: parking a victim freed its private
+                # pages — ask the gate again before deferring
+                gated = not self.admission_gate(owner, n_pages)
+            if gated:
                 # pool pressure: defer the newcomer before touching the
                 # MMU. Advisory only — with no live slot (nothing will
                 # ever free a page) the lease is tried, so exhaustion
                 # still surfaces as MMUError below
                 self._defer(req, "pool_pressure")
                 break
+            prompt = req.prompt if self._share else None
             try:
-                self.kv.admit(i, owner, plen, lease_len=lease_len)
+                try:
+                    shared = self.kv.admit(i, owner, plen,
+                                           lease_len=lease_len,
+                                           prompt=prompt)
+                except MMUError:
+                    # the lease bounced on a dry pool: park a victim and
+                    # retry once
+                    if not (self._swap and self._swap_out_victim()):
+                        raise
+                    shared = self.kv.admit(i, owner, plen,
+                                           lease_len=lease_len,
+                                           prompt=prompt)
             except MMUError as exc:
                 # pool exhausted / quota: requeue at the front, retry
                 # next step once EOS recycling returns pages
@@ -257,7 +309,12 @@ class ServeEngine:
                 # the slot's recurrent-state pages lease from the same
                 # pool, under the same deferral story
                 try:
-                    self.rstate.admit(i, owner)
+                    try:
+                        self.rstate.admit(i, owner)
+                    except MMUError:
+                        if not (self._swap and self._swap_out_victim()):
+                            raise
+                        self.rstate.admit(i, owner)
                 except MMUError as exc:
                     self.kv.release(i)     # its lease was not counted yet
                     self._defer(req, type(exc).__name__)
@@ -267,18 +324,24 @@ class ServeEngine:
                 self.stats.state_pages_leased += self.rstate.blocks_per_slot
             if self._reset_rows:
                 self.kv.state = self.model.reset_state_row(self.kv.state, i)
+            if shared:
+                self.stats.shared_prefix_hits += 1
+                self.stats.shared_prefix_tokens += shared
             if self.obs.enabled:
                 self.obs.tracer.event(self.obs_tenant, req.rid,
                                       PHASE_ADMITTED, slot=i,
-                                      pages=self.kv.tables[i].n_pages)
+                                      pages=self.kv.tables[i].n_pages,
+                                      shared_tokens=shared)
             self.slots[i] = req
             self.stats.admitted += 1
             self.stats.pages_leased += self.kv.tables[i].n_pages
             if self._chunked:
                 # the chunk scheduler writes the prompt across later
-                # steps; positions stays -1 (dead for decode) meanwhile
+                # steps; positions stays -1 (dead for decode) meanwhile.
+                # A warm admission starts past the shared span, whose
+                # K/V pages are already resident and mapped
                 self.positions[i] = -1
-                self._cursor[i] = 0
+                self._cursor[i] = shared
                 continue
             logits, caches = self._prefill_fn(
                 params, {"tokens": self._dev(req.prompt[None])})
@@ -340,8 +403,11 @@ class ServeEngine:
             budget -= c
             before = self.kv.tables[i].n_pages
             try:
-                # incremental leasing: fault in the pages this chunk spans
-                self.kv.ensure(i, start + c - 1)
+                # incremental leasing: fault in the pages this chunk
+                # spans; write_from=start makes the whole chunk window
+                # privately writable, so a warm request writing past its
+                # shared span into a shared partial page forks it here
+                self.kv.ensure(i, start + c - 1, write_from=start)
             except MMUError as exc:
                 grown = self.kv.tables[i].n_pages - before
                 self.stats.page_faults += grown
@@ -372,6 +438,10 @@ class ServeEngine:
                 self._cursor[i] = -1
                 self.positions[i] = plen
                 self.stats.prefills += 1
+                if self._share:
+                    # publish the prompt's pages: later requests with
+                    # this prefix admit warm
+                    self.kv.register_prefix(i, req.prompt)
                 if self.obs.enabled:
                     self.obs.tracer.event(self.obs_tenant, req.rid,
                                           PHASE_PREFILL, tokens=plen)
@@ -385,11 +455,112 @@ class ServeEngine:
         self.rstate.release(i)
 
     # ------------------------------------------------------------------
+    # Swap tier: park a victim slot under pressure, resume when calm
+    # ------------------------------------------------------------------
+    def _swap_out_victim(self, exclude=None, mid_step: bool = False
+                         ) -> bool:
+        """Suspend one decoding slot — the one holding the most pages,
+        the biggest single relief. Returns True if any pages moved."""
+        candidates = [j for j in range(self.B)
+                      if self.slots[j] is not None and j != exclude
+                      and j not in self._parked
+                      and self.positions[j] >= 0 and self._cursor[j] < 0]
+        candidates.sort(key=lambda j: self.kv.tables[j].n_pages,
+                        reverse=True)
+        for j in candidates:
+            if self._park(j, mid_step=mid_step):
+                return True
+        return False
+
+    def _park(self, j: int, mid_step: bool = False) -> bool:
+        """Suspend slot ``j``: private KV pages and recurrent rows to the
+        host tier, its decode position saved. False if nothing moved (a
+        fully shared slot without recurrent state)."""
+        moved = self.kv.swap_out(j)
+        smoved = 0
+        if self.rstate is not None:
+            self.kv.state, smoved = self.rstate.park(self.kv.state, j)
+        if moved == 0 and smoved == 0:
+            return False
+        self._parked[j] = int(self.positions[j])
+        if mid_step:
+            self._emitted_parked.add(j)
+        self.positions[j] = -1
+        self.stats.swap_outs += moved
+        self.stats.state_swap_outs += smoved
+        if self.obs.enabled:
+            self.obs.tracer.event(self.obs_tenant, self.slots[j].rid,
+                                  PHASE_SWAP_OUT, pages=moved,
+                                  state_pages=smoved)
+            self.obs.flight_record(
+                self.obs_tenant, "kv_swap_out",
+                {"slot": j, "pages": moved, "state_pages": smoved,
+                 "rid": self.slots[j].rid})
+        return True
+
+    def _try_resume(self):
+        """Refault the oldest parked slot once the pool can hold it
+        again. Newcomers keep priority: while the queue is non-empty and
+        a slot is free, pages go to admissions first (mid-decode
+        truncation guarantees progress, so parked slots never deadlock
+        the engine)."""
+        if not self._parked:
+            return
+        with self._lock:
+            waiting = bool(self.waiting)
+        if waiting and any(s is None for s in self.slots):
+            return
+        ms = self.kv.pool.memory_stats()
+        free = ms["segments_total"] - ms["segments_in_use"]
+        idle = not waiting and all(
+            self.slots[j] is None or j in self._parked
+            for j in range(self.B))
+        for j in sorted(self._parked):
+            need = self.kv.swapped_blocks(j)
+            if self.rstate is not None:
+                need += self.rstate.swapped_blocks(j)
+            # reserve the growth page when the pending write position
+            # sits past the table: resuming into an exactly full pool
+            # would park the slot again before it emits anything
+            if (self._parked[j] // self.kv.page_size
+                    >= self.kv.tables[j].n_pages):
+                need += 1
+            if need > free:
+                if not (idle and self.kv.prefix is not None
+                        and len(self.kv.prefix)):
+                    continue
+                # only parked slots remain and prefix-cache pins hold the
+                # pool: shed them — liveness beats cache warmth
+                self.kv.prefix.evict_all()
+                ms = self.kv.pool.memory_stats()
+                free = ms["segments_total"] - ms["segments_in_use"]
+                if need > free:
+                    continue
+            n = self.kv.swap_in(j)
+            sn = 0
+            if self.rstate is not None:
+                self.kv.state, sn = self.rstate.refault(self.kv.state, j)
+            self.positions[j] = self._parked.pop(j)
+            self.stats.swap_ins += n
+            self.stats.state_swap_ins += sn
+            if self.obs.enabled:
+                self.obs.tracer.event(self.obs_tenant, self.slots[j].rid,
+                                      PHASE_REFAULT, pages=n,
+                                      state_pages=sn)
+                self.obs.flight_record(
+                    self.obs_tenant, "kv_refault",
+                    {"slot": j, "pages": n, "state_pages": sn,
+                     "rid": self.slots[j].rid})
+            return                       # one resume per step
+
+    # ------------------------------------------------------------------
     # Stepping
     # ------------------------------------------------------------------
     def _finish(self, i, finished):
         r = self.slots[i]
         r.done = True
+        self._parked.pop(i, None)
+        self._emitted_parked.discard(i)
         self.slots[i] = None                      # recycle the slot
         self.positions[i] = -1
         self._cursor[i] = -1
@@ -422,10 +593,22 @@ class ServeEngine:
         return finished
 
     def _step(self, params) -> List[Request]:
+        # CoW forks fire inside kv.ensure() at several call sites: take
+        # the step's delta, so a fresh ``EngineStats()`` counts cleanly
+        # while the cache keeps monotonic counts
+        cf0 = self.kv.cow_forks
+        try:
+            return self._step_body(params)
+        finally:
+            self.stats.cow_forks += self.kv.cow_forks - cf0
+
+    def _step_body(self, params) -> List[Request]:
         finished: List[Request] = []
         self._admit(params)
         if self._chunked:
             self._prefill_chunks(params)
+        if self._swap:
+            self._try_resume()
         # mid-prefill slots (positions -1) occupy a slot but don't emit
         active = [i for i in range(self.B) if self.slots[i] is not None
                   and self.positions[i] >= 0]
@@ -437,6 +620,13 @@ class ServeEngine:
         token = np.zeros((self.B, 1), np.int32)
         for i in active:
             r = self.slots[i]
+            if i in self._emitted_parked:
+                # first step after a mid-step park resumed: _next[i] was
+                # emitted in the step that parked the slot — feed it to
+                # decode once for its pending K/V write, not emit it again
+                self._emitted_parked.discard(i)
+                token[i, 0] = int(nxt[i])
+                continue
             if len(r.out_tokens) >= r.max_new_tokens:   # zero-budget case
                 self._finish(i, finished)
                 continue
@@ -452,12 +642,28 @@ class ServeEngine:
                 self._finish(i, finished)               # KV budget: truncate
         for i in [i for i in range(self.B) if self.slots[i] is not None
                   and self.positions[i] >= 0]:
+            if self.positions[i] < 0:
+                continue       # parked by an earlier slot's swap relief
             # demand paging — engine-local deltas; demand-grown pages
             # count as leased so pages_leased/pages_freed balance at EOS
             before = self.kv.tables[i].n_pages
+            failed = False
             try:
-                self.kv.ensure(i, int(self.positions[i]))
-                failed = False
+                try:
+                    self.kv.ensure(i, int(self.positions[i]))
+                except MMUError:
+                    if not self._swap:
+                        raise
+                    # swap relief: park another decoder so this slot's
+                    # fault can be served; with none to shed, suspend
+                    # this slot itself — it resumes (and completes its
+                    # pending K/V write) once pages free up
+                    if self._swap_out_victim(exclude=i, mid_step=True):
+                        self.kv.ensure(i, int(self.positions[i]))
+                    elif self._park(i, mid_step=True):
+                        continue
+                    else:
+                        raise
             except MMUError:
                 failed = True
             grown = self.kv.tables[i].n_pages - before

@@ -5,10 +5,9 @@ Under pressure a victim's private state moves device→host through the
 :class:`~repro_torch.core.shell.TransferEngine`, so DMA bytes and stage
 timings land in the same accounting as every other host↔device move,
 and its frames go back to the MMU; the refault path pages the payload
-back in on resume.
-:class:`~repro_torch.serving.paged_state.PagedRecurrentState` parks
-per-slot recurrent rows here; the KV swap tier of ``PagedKVCache`` is
-not ported yet.
+back in on resume. ``PagedKVCache`` parks KV pages here and
+:class:`~repro_torch.serving.paged_state.PagedRecurrentState` per-slot
+recurrent rows.
 
 Payloads are keyed ``(page_table_handle, logical_block)``: handles are
 never reused across leases, so a stale payload can never be refaulted

@@ -206,7 +206,7 @@ def test_ring_prefill_caches_match(ring_pair, C):
     want, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, capacity=C)
     got, tc = m.prefill(p, {"tokens": torch.from_numpy(toks)}, capacity=C)
     assert tc["k"].shape == (cfg.n_layers, 2, C, cfg.n_kv_heads, cfg.d_head)
-    ref = caches_from_jax(jax.device_get(jc))
+    ref = caches_from_jax(jax.device_get(jc), cfg)
     for kk in ("k", "v"):
         _close(tc[kk], ref[kk].numpy(), 1e-4)
     _close(got[:, :cfg.vocab], np.asarray(want)[:, :cfg.vocab], 1e-4)
@@ -232,7 +232,7 @@ def test_ring_decode_logits_over_a_wrapping_ring(ring_pair, C, S):
         _close(got[:, :cfg.vocab], np.asarray(jl)[:, :cfg.vocab], 1e-4)
         tok = np.argmax(np.asarray(jl)[:, :cfg.vocab], -1)[:, None].astype(
             np.int32)
-    ref = caches_from_jax(jax.device_get(jc))
+    ref = caches_from_jax(jax.device_get(jc), cfg)
     for kk in ("k", "v"):
         _close(tc[kk], ref[kk].numpy(), 1e-4)
 

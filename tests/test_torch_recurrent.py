@@ -166,8 +166,8 @@ def test_paging_sizes_match(pair):
 def test_unported_paths_raise():
     _, cfg = _cfgs("rwkv6-7b")
     m = Model(cfg, device="cpu")                 # no rope, no attention: ok
-    with pytest.raises(NotImplementedError):
-        m.init_cache(1, 8)                       # recurrent ring decode
+    caches = m.init_cache(1, 8)                  # ring decode is ported
+    assert "k" not in caches and len(caches["rows"]) == cfg.n_layers
     qcfg = dataclasses.replace(get_config("qwen1.5-0.5b", reduced=True),
                                use_rope=False)
     with pytest.raises(NotImplementedError):

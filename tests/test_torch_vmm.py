@@ -31,6 +31,7 @@ from repro.core.reconfig import weights_fingerprint as jax_fingerprint
 from repro.models import build_model as jax_build_model
 from repro_torch.bridge import caches_to_numpy, params_from_jax
 from repro_torch.checkpointing import latest, restore, save
+from repro_torch.configs import get_config
 from repro_torch.core import vmm as vmm_mod
 from repro_torch.core import (VMM, AdmissionError, AdmissionPressure,
                               IsolationViolation, LegalityError,
@@ -413,9 +414,10 @@ def test_weights_fingerprint_matches_reference(dtype):
     jp = jax_build_model(cfg).init(jax.random.PRNGKey(4))
     jp = jax.tree.map(lambda x: x.astype(jnp.dtype(dtype)), jp)
     p = params_from_jax(jax.device_get(jp))
-    assert weights_fingerprint(p) == jax_fingerprint(jp)
+    pcfg = get_config("qwen1.5-0.5b", reduced=True)
+    assert weights_fingerprint(p, pcfg) == jax_fingerprint(jp)
     p["final_norm"]["scale"][0] += 1
-    assert weights_fingerprint(p) != jax_fingerprint(jp)
+    assert weights_fingerprint(p, pcfg) != jax_fingerprint(jp)
 
 
 # ===========================================================================
@@ -490,7 +492,8 @@ def test_programs_match_reference(programs):
     for kk in ("k", "v"):
         _close(mc[kk], caches_to_numpy(
             {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in
-             jc[0][0]["mixer"].items()})[0][0]["mixer"][kk])
+             jc[0][0]["mixer"].items()}, get_config(
+                 "qwen1.5-0.5b", reduced=True))[0][0]["mixer"][kk])
     jdc, mdc = out["decode"]
     tok = np.argmax(np.asarray(jlog)[:, :512], -1)[:, None].astype(np.int32)
     for pos in (16, 17, 18):
