@@ -25,7 +25,10 @@ Phases, each printing its lines and raising on any failure:
    q-tile edges (S = 1, 63, 64, 65) and at B=4 S=4096, and at
    recurrentgemma's hd=256, Hq/Hkv 10/1 with windows, and at the head
    dims of phi3-mini (hd 96, 32/32) and kimi-k2 (hd 112, 64/8), bf16 and
-   fp32, S = 1, 65, 130, causal and windowed; ring-cache decode
+   fp32, S = 1, 65, 130, causal and windowed; flash and fused paged
+   decode at the families phase's hd-128 shapes (starcoder2's 48/4,
+   mixtral's 32/8 with window 4096 at S = 4200, internlm2's 16/8; a dead
+   slot, NaN-poisoned masked rows); ring-cache decode
    at C=4096 (partly filled, wrapped, windowed, fewer valid slots than
    splits, a wrap inside a share and on a split edge, a window emptying
    shares, NaN in invalid slots, ``pos`` on the device) at every head dim
@@ -90,9 +93,23 @@ Phases, each printing its lines and raising on any failure:
    after churn under ``max_resident=1`` (swaps both ways, CRC over every
    weight byte at register and swap-in, no failure); a flipped byte in a
    host copy is refused and counted once; swap-in and swap-out times;
-11. apps — the paper's three apps (``launch/apps.py``) native and through
+11. families — the repo's other seven families through ``ServeEngine``
+   (random weights from seed 0, made in bf16; batch 4, 16-token pages,
+   the same 8 requests): internlm2-1.8b, phi3-mini-3.8b, starcoder2-15b
+   at full depth, mixtral-8x7b cut to 16 of 32 layers, kimi-k2 to its
+   dense first layer and one MoE layer (384 experts, top-8), internvl2-2b
+   (256 stub image rows, capacity 512) and whisper-medium (1500 stub
+   frames), monolithic and, but for the last two, chunked: the serve
+   gates and each path's kernels; then each family's card-vs-CPU
+   reference at full width in fp32, cut to one layer (kimi its two, with
+   16 experts; whisper one encoder and one decoder layer): prefill logits
+   and 3 paged decode steps within 1e-3, and for the MoE families every
+   (token, k) expert pick (a pick may differ only at a near tie, < 1e-5,
+   and is reported); TTFT, tok/s and the step p50 beside the card's name
+   and power limit;
+12. apps — the paper's three apps (``launch/apps.py``) native and through
    three bound tenants, at the reference size and at the card's;
-12. times — per mode TTFT, throughput and the median engine step; per
+13. times — per mode TTFT, throughput and the median engine step; per
    kernel its device time (torch.profiler/CUPTI; the per-call CUDA-event
    time is printed beside it), its plain version's, one PyTorch call
    computing the same function (``library_ms``, a yardstick the port
@@ -482,8 +499,10 @@ def sampler_edge_rows(V, share, device):
 def check_sampler(device):
     """The sampler against its plain version (``torch.argmax``) and
     ``np.argmax`` of the same scores on the host, exact: random rows at
-    B = 4 and the three served vocabularies (qwen 152064 padded,
-    recurrentgemma 256000, rwkv6 65536), at B = 1 and B = 64, at V = 1,
+    B = 4 and every vocabulary the sampler serves (chunked mode: qwen
+    152064 padded, recurrentgemma 256000, rwkv6 65536, internlm2 92672
+    padded, phi3-mini 32256 padded, starcoder2 49152, mixtral 32000,
+    kimi-k2 163840), at B = 1 and B = 64, at V = 1,
     5, 1000 and 152061 (rows not 16-byte aligned); the edge rows of
     :func:`sampler_edge_rows` at V = 152064 and 152061; the cross-block
     tie of the reference's 2048-wide blocks."""
@@ -512,7 +531,8 @@ def check_sampler(device):
         if bad:
             raise AssertionError(f"sample_tokens {what}: rows {bad}")
 
-    for B, V in ((4, 152064), (4, 256000), (4, 65536), (1, 152064),
+    for B, V in ((4, 152064), (4, 256000), (4, 65536), (4, 92672),
+                 (4, 32256), (4, 49152), (4, 32000), (4, 163840), (1, 152064),
                  (64, 152064), (4, 1), (4, 5), (4, 1000), (4, 152061)):
         compare("random", *sampler_inputs(B, V, device, seed=B + V))
     for V in (152064, 152061):
@@ -569,6 +589,7 @@ def check_kernels(device, errs):
         errs["flash_attention"] = max(errs["flash_attention"], err)
         del q, k, v
     check_flash_head_dims(device, errs)
+    check_family_shapes(device, errs)
 
     lens = [37, 0, 129, 256]                  # slot 1 dead; 256 = full table
     for Hq, Hkv, window, dt, nan in ((16, 16, 0, bf16, False),
@@ -634,6 +655,62 @@ def check_flash_head_dims(device, errs):
                 err = _expect_close("flash_attention", what, got, want,
                                     BF16_ULP_ATOL, BF16_ULP_RTOL)
                 errs["flash_attention"] = max(errs["flash_attention"], err)
+
+
+#: the attention shapes of the families phase, all at hd 128: starcoder2's
+#: 48/4 (G 12), mixtral's 32/8 with its window of 4096, internlm2's 16/8
+FAMILY_SHAPES = ((48, 4, 0), (32, 8, 4096), (16, 8, 0))
+
+
+def check_family_shapes(device, errs):
+    """Flash and the fused paged decode at ``FAMILY_SHAPES``, bf16 and
+    fp32: flash at S = 130 (S = 4200 with the window, so that it masks),
+    the decode over four slots with a dead one and lengths past the
+    window, clean and with NaN in every masked pool row; bf16 within two
+    ulps of the plain version, fp32 at 2e-5."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import fused_decode_step_op
+    from repro_torch.kernels.decode_attention.ref import fused_paged_decode_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    for (Hq, Hkv, window), dt in itertools.product(
+            FAMILY_SHAPES, (torch.bfloat16, torch.float32)):
+        dn = str(dt).replace("torch.", "")
+        S = 4200 if window else 130
+        q, k, v = flash_inputs(S, Hq, Hkv, dt, device, seed=Hq + S, hd=128)
+        got = flash_attention_op(q, k, v, window=window)
+        want = flash_attention_ref(q, k, v, window=window)
+        what = f"B=1 S={S} Hq={Hq} Hkv={Hkv} hd=128 window={window} {dn}"
+        if dt == torch.float32:
+            _expect("flash_attention", what, _max_err(got, want), TOL[dn])
+        else:
+            err = _expect_close("flash_attention", what, got, want,
+                                BF16_ULP_ATOL, BF16_ULP_RTOL)
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+        del q, k, v, got, want
+        lens_sets = [[37, 0, 4200, 4097] if window else [37, 0, 129, 256]]
+        if (Hq, Hkv) == (16, 8):
+            # internvl2's slots: 256 image rows + prompt + output, a table
+            # of 32 pages (capacity 512)
+            lens_sets.append([37, 0, 418, 512])
+        for lens in lens_sets:
+            nb = -(-max(lens) // 16)
+            d = decode_inputs(lens, Hq, Hkv, dt, device, seed=Hq + Hkv,
+                              nb=nb, hd=128)
+            for nan in (False, True):
+                if nan:
+                    poison_masked_rows(d, window)
+                got = fused_decode_step_op(**d, window=window)
+                want = fused_paged_decode_ref(**d, window=window)
+                what = (f"B=4 Hq={Hq} Hkv={Hkv} hd=128 lens={lens} nb={nb} "
+                        f"window={window} nan_masked={nan} {dn}")
+                err = _check_decode_case("fused_paged_decode", what, got,
+                                         want, [1])
+                log(f"[kernel] fused_paged_decode {what}: "
+                    f"max_abs_err={err:.3g} ok")
+                if dt == torch.bfloat16:
+                    errs["fused_paged_decode"] = max(
+                        errs.get("fused_paged_decode", 0), err)
 
 
 #: the split walk's edges at nb=16, ps=16 (4 CTAs a (slot, kv head) of
@@ -1155,7 +1232,7 @@ def serve(cfg, model, params, requests, chunk_tokens, batch=4,
 
 
 def serve_phase(mode, cfg, model, params, requests, launches, path=None,
-                engine_kw=None):
+                engine_kw=None, capacity=256):
     """Serve ``requests`` natively in ``mode`` after a two-request
     warm-up; the launches of the timed run are held to ``path``'s
     kernels (default: the mode's)."""
@@ -1163,12 +1240,13 @@ def serve_phase(mode, cfg, model, params, requests, launches, path=None,
     from repro_torch.obs import ObsHub
     path = path or mode
     chunk = 32 if mode == "chunked" else 0
-    serve(cfg, model, params, requests[:2], chunk,
+    serve(cfg, model, params, requests[:2], chunk, capacity=capacity,
           engine_kw=engine_kw)                             # warm-up run
     obs = ObsHub(enabled=True)
     common.reset_launches()
     eng, outs, wall, steps = serve(cfg, model, params, requests, chunk,
-                                   obs=obs, engine_kw=engine_kw)
+                                   capacity=capacity, obs=obs,
+                                   engine_kw=engine_kw)
     counts = dict(common.LAUNCHES)
     s = eng.stats
     log(f"[serve:{path}] {s.completed} requests, {s.generated_tokens} "
@@ -1690,8 +1768,8 @@ def build_weights(device):
         cfg = get_config(arch)
         model = Model(cfg, device)
         t0 = time.perf_counter()
-        params = model.compute_params(
-            model.init(torch.Generator(device=device).manual_seed(0)))
+        params = model.init_compute_params(
+            torch.Generator(device=device).manual_seed(0))
         sync(device)
         torch.cuda.empty_cache()
         log(f"[weights] {arch}: {cfg.n_layers} layers, d_model "
@@ -2153,6 +2231,220 @@ def mux_phase(device, launches, weights):
         vmm.shutdown()
     del reg, mux
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the other seven families: dense, MoE, VLM, enc-dec
+# ---------------------------------------------------------------------------
+
+#: the families phase: arch, its path name, the depth served on the card
+#: (None: full; mixtral 16 of 32 layers, ~47 GB in bf16, and kimi its
+#: dense first layer and one MoE layer at full width, ~40 GB), the KV
+#: capacity (internvl2: 256 image rows + prompt + output), the depth of
+#: the card-vs-CPU reference and the experts it keeps (kimi's 384 fp32
+#: experts do not fit the host twice; None keeps the config's)
+FAMILIES = (("internlm2-1.8b", "internlm2", None, 256, 1, None),
+            ("phi3-mini-3.8b", "phi3", None, 256, 1, None),
+            ("starcoder2-15b", "starcoder2", None, 256, 1, None),
+            ("mixtral-8x7b", "mixtral", 16, 256, 1, None),
+            ("kimi-k2-1t-a32b", "kimi", 2, 256, 2, 16),
+            ("internvl2-2b", "internvl2", None, 512, 1, None),
+            ("whisper-medium", "whisper", None, 256, 1, None))
+for _arch, _short, *_ in FAMILIES:
+    PATH_KERNELS[f"{_short}-monolithic"] = ("flash_attention",
+                                            "fused_paged_decode")
+    PATH_KERNELS[f"{_short}-chunked"] = ("fused_paged_decode",
+                                         "sample_tokens")
+
+
+def family_cfg(arch, depth=None, **kw):
+    """The full-width config of ``arch``, cut to ``depth`` layers (the
+    encoder too, for whisper, when ``enc_depth`` is given)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    enc_depth = kw.pop("enc_depth", None)
+    n_experts = kw.pop("n_experts", None)
+    if depth:
+        kw["n_layers"] = depth
+    if enc_depth and cfg.is_encdec:
+        kw["encoder"] = dataclasses.replace(cfg.encoder, n_layers=enc_depth)
+    if n_experts:
+        kw["moe"] = dataclasses.replace(cfg.moe, n_experts=n_experts)
+    return dataclasses.replace(cfg, **kw)
+
+
+def record_routes():
+    """Wrap the MoE router so that every call's (probs, picks) is kept
+    on the host, by the device of its input; → (records, undo)."""
+    from repro_torch.models import moe
+    records = {"cuda": [], "cpu": []}
+    route = moe.route
+
+    def recorded(cfg, p, xf):
+        out = route(cfg, p, xf)
+        records[xf.device.type].append((out[0].cpu(), out[2].cpu()))
+        return out
+    moe.route = recorded
+
+    def undo():
+        moe.route = route
+    return records, undo
+
+
+def compare_picks(arch, records):
+    """The card's (token, k) expert picks against the CPU's: a pick that
+    differs where the k-th and (k+1)-th CPU probabilities lie within
+    1e-5 is reported; any other difference fails."""
+    import torch
+    cuda, cpu = records["cuda"], records["cpu"]
+    if len(cuda) != len(cpu) or not cpu:
+        raise AssertionError(f"{arch}: {len(cuda)} router calls on the "
+                             f"card, {len(cpu)} on the CPU")
+    picks = near = 0
+    for (_, ig), (pc, ic) in zip(cuda, cpu):
+        picks += ic.numel()
+        bad = (ig != ic).any(-1).nonzero(as_tuple=True)[0]
+        for t in bad.tolist():
+            ps = torch.sort(pc[t], descending=True).values
+            K = ic.shape[1]
+            gap = float(ps[K - 1] - ps[K])
+            if gap >= 1e-5:
+                raise AssertionError(
+                    f"{arch}: token {t}'s picks differ, card "
+                    f"{ig[t].tolist()} CPU {ic[t].tolist()}, k-th and "
+                    f"(k+1)-th probabilities {gap:.3g} apart")
+            near += 1
+    log(f"[families] {arch}: {len(cpu)} router calls, {picks} (token, k) "
+        f"picks card vs CPU: {picks - near} equal, {near} differ at a near "
+        f"tie (< 1e-5)")
+
+
+def family_reference(device, arch, depth, n_experts):
+    """Card against the CPU plain path for one family, fp32 at full
+    width, cut to ``depth`` layers (one encoder layer for whisper), the
+    experts cut to ``n_experts`` when given (on both sides): the prefill
+    logits of a 40-token prompt (after the VLM's image rows, over the
+    enc-dec's frames) and 3 paged decode steps (the card's greedy token
+    feeds both), tolerance 1e-3 as in the recurrent reference; for the
+    MoE families the expert picks of every router call too."""
+    import torch
+    from repro_torch.launch.serve import frontend_inputs
+    from repro_torch.models import Model
+    cpu = torch.device("cpu")
+    cfg = family_cfg(arch, depth, compute_dtype="float32", enc_depth=1,
+                     n_experts=n_experts)
+    m_dev, m_cpu = Model(cfg, device), Model(cfg, cpu)
+    params = m_dev.init(torch.Generator(device=device).manual_seed(17))
+    p_cpu = cpu_tree(params)
+    tok = torch.from_numpy(make_requests(cfg.vocab, 2, seed=8)[1][0][:40]
+                           [None]).long()
+    extra = {k: torch.from_numpy(v) for k, v in
+             frontend_inputs(cfg, 1).items()}
+    L = m_dev.n_prefix + 40
+    ps = 16
+    nb = -(-(L + 4) // ps)
+    bt = torch.arange(nb, dtype=torch.int32)[None]
+    records, undo = record_routes() if cfg.ffn_kind == "moe" \
+        else (None, lambda: None)
+    try:
+        def prefill(m, p, d):
+            batch = {"tokens": tok.to(d),
+                     **{k: v.to(d) for k, v in extra.items()}}
+            lg, caches = m.prefill(p, batch)
+            return lg, m.write_prefill_paged(m.init_paged_state(1, nb, ps),
+                                             caches, 0, bt[0].to(d), L, ps)
+        lg_dev, st_dev = prefill(m_dev, params, device)
+        lg_cpu, st_cpu = prefill(m_cpu, p_cpu, cpu)
+        errs, scale = [], 0.0
+        for step in range(4):
+            got = lg_dev[:, :cfg.vocab].float().cpu()
+            want = lg_cpu[:, :cfg.vocab]
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{arch}: non-finite logits")
+            errs.append(_max_err(got, want))
+            scale = max(scale, float(want.abs().max()))
+            if step == 3:
+                break
+            nxt = got.argmax(-1)[:, None].to(torch.int32)
+            pos = torch.tensor([L + step], dtype=torch.int32)
+            lg_dev, st_dev = m_dev.decode_paged(params, st_dev,
+                                                nxt.to(device),
+                                                pos.to(device),
+                                                bt.to(device))
+            lg_cpu, st_cpu = m_cpu.decode_paged(p_cpu, st_cpu, nxt, pos, bt)
+    finally:
+        undo()
+    err = max(errs)
+    cut = f"{cfg.n_layers} layer(s)" + (
+        f", {cfg.encoder.n_layers} encoder layer" if cfg.is_encdec else "") \
+        + (f", {cfg.moe.n_experts} experts" if n_experts else "")
+    log(f"[families] {arch} reference: full width cut to {cut}, fp32: "
+        f"prefill S={L} + 3 paged decode steps, logits card vs CPU: "
+        f"max_abs_err={err:.3g} per step {[f'{e:.3g}' for e in errs]} (max "
+        f"|logit| {scale:.3g}, tol 1e-3) {'ok' if err <= 1e-3 else 'FAIL'}")
+    if err > 1e-3:
+        raise AssertionError(f"{arch}: card and CPU logits disagree")
+    if records is not None:
+        compare_picks(arch, records)
+    del params, m_dev, st_dev, lg_dev
+    torch.cuda.empty_cache()
+
+
+def families_phase(device, launches, smi):
+    """The repo's other seven families through ``ServeEngine`` on the
+    card (random weights from seed 0, made in bf16; bf16 compute; batch
+    4, 16-token pages, the phases' 8 requests): monolithic, and chunked
+    (``chunk_tokens=32``) for all but the VLM and the enc-dec, which
+    prefill monolithically. Per family and mode: every request finishes,
+    ``full_prefills == 0``, pages (and state pages) leased == freed,
+    every id below the vocabulary, each kernel of the path launched;
+    then the family's card-vs-CPU reference. Each family's weights are
+    made and freed in turn; the times print beside the card's name and
+    power limit (``smi``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import frontend_inputs
+    from repro_torch.models import Model
+    t0 = time.perf_counter()
+    for arch, short, depth, capacity, ref_depth, ref_experts in FAMILIES:
+        cfg = family_cfg(arch, depth)
+        model = Model(cfg, device)
+        t = time.perf_counter()
+        params = model.init_compute_params(
+            torch.Generator(device=device).manual_seed(0))
+        sync(device)
+        torch.cuda.empty_cache()
+        full = get_config(arch).n_layers
+        log(f"[families] {arch}: {cfg.n_layers} of {full} layers"
+            + (" (depth cut)" if cfg.n_layers != full else "")
+            + (f", encoder {cfg.encoder.n_layers} layers, "
+               f"{cfg.encoder.seq_len} stub frames" if cfg.is_encdec else "")
+            + (f", {cfg.frontend.n_tokens} stub image rows"
+               if cfg.family == "vlm" else "")
+            + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}"
+               if cfg.ffn_kind == "moe" else "")
+            + f", d_model {cfg.d_model}, heads {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} hd {cfg.d_head}, vocab {cfg.vocab}; made in "
+            f"{time.perf_counter() - t:.1f}s, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card; "
+            f"capacity {capacity}, state row {model.state_row_bytes()} B")
+        requests = make_requests(cfg.vocab)
+        kw = {"state_paging": True,
+              "extra_batch": frontend_inputs(cfg, 4)}
+        modes = ("monolithic",) if kw["extra_batch"] else ("monolithic",
+                                                           "chunked")
+        for mode in modes:
+            path = f"{short}-{mode}"
+            r = serve_phase(mode, cfg, model, params, requests, launches,
+                            path=path, engine_kw=kw, capacity=capacity)
+            log(f"[time:{path}] {smi}: ttft p50 {r['ttft_p50_ms']:.2f} ms, "
+                f"{r['tok_s']:.1f} tok/s over the run, engine step p50 "
+                f"{r['step_p50_ms']:.3f} ms")
+        del params, model
+        torch.cuda.empty_cache()
+        family_reference(device, arch, ref_depth, ref_experts)
+    log(f"[families] phase took {time.perf_counter() - t0:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -2630,14 +2922,18 @@ def main():
     kv_hierarchy_phase(device, launches, weights)
     phase_done("kv-hierarchy")
     mux_phase(device, launches, weights)
+    weights.clear()
+    torch.cuda.empty_cache()
     phase_done("mux")
+    families_phase(device, launches, smi)
+    phase_done("families")
     apps_phase(device, launches)
     phase_done("apps")
 
     if "--profile" in sys.argv[1:]:
         model = Model(cfg, device)
-        params = model.compute_params(
-            model.init(torch.Generator(device=device).manual_seed(0)))
+        params = model.init_compute_params(
+            torch.Generator(device=device).manual_seed(0))
         for mode in ("monolithic", "chunked"):
             profile_phase(mode, cfg, model, params, requests)
         del params, model
@@ -2645,8 +2941,8 @@ def main():
         for arch, short, _ in RECURRENT_ARCHS:
             rcfg = get_config(arch)
             model = Model(rcfg, device)
-            params = model.compute_params(
-                model.init(torch.Generator(device=device).manual_seed(0)))
+            params = model.init_compute_params(
+                torch.Generator(device=device).manual_seed(0))
             for mode in ("monolithic", "chunked"):
                 profile_phase(mode, rcfg, model, params,
                               make_requests(rcfg.vocab),

@@ -7,8 +7,12 @@ dicts laid out by ``repro/models/lm.py::build_layout``: a scan segment
 holds one dict per position of the block pattern, its leaves stacked on
 a leading periods axis; an unrolled segment holds one dict per layer
 (recurrentgemma-2b is a scan over 8 ``(rglru, rglru, swa)`` periods and
-an unrolled ``(rglru, rglru)`` tail). The port keeps one dict per layer
-in absolute order. Layouts are kept as they are (``wq (d,H,hd)``,
+an unrolled ``(rglru, rglru)`` tail; kimi-k2 an unrolled dense first
+layer before a scan over its MoE layers, whose stacked experts carry the
+periods axis before ``(E, d, de)``). The port keeps one dict per layer
+in absolute order. An enc-dec model's ``encoder`` holds its own
+``segments`` (the port's ``encoder["layers"]``); ``projector`` and
+``enc_proj`` cross as they are. Layouts are kept as they are (``wq (d,H,hd)``,
 ``wo (H,hd,d)``, ``w_gate (d,ff)``, ``w_ra (H,dh,dh)``), so the two
 packages' einsums compare like for like.
 
@@ -22,7 +26,8 @@ on ``ml_dtypes``.
 Ring caches and paged serving states cross the same way. The
 reference's are the segment structure of its layout (a scan segment's
 leaves stacked on the periods axis, an unrolled one per layer), each
-layer ``{"mixer": ..., "ffn": ...}``; the port's are ``"k"``/``"v"``
+layer ``{"mixer": ..., "cross": ..., "ffn": ...}``; the port's are
+``"k"``/``"v"``
 stacked over the attention layers — (La, B, C, Hkv, hd) rings or
 (La, P, ps, Hkv, hd) pools — and ``"rows"``, one dict of batch rows per
 layer (:func:`caches_from_jax` / :func:`caches_to_numpy`,
@@ -81,14 +86,11 @@ def _cpu(tree):
     return tree.detach().cpu()
 
 
-def params_from_jax(tree, device="cpu"):
-    """JAX ``Model.init`` pytree (numpy leaves) → port parameters. A
-    segment is a scan when its leaves carry the periods axis (a norm
-    scale of rank 2)."""
-    out = {k: _to_torch(v, device) for k, v in tree.items()
-           if k != "segments"}
+def _layers_from_jax(segments, device):
+    """A segment is a scan when its leaves carry the periods axis (a
+    norm scale of rank 2)."""
     layers = []
-    for seg in tree["segments"]:
+    for seg in segments:
         scale = np.asarray(seg[0]["norm1"]["scale"])
         if scale.ndim == 1:                       # unrolled
             layers += [_to_torch(layer, device) for layer in seg]
@@ -96,7 +98,19 @@ def params_from_jax(tree, device="cpu"):
             layers += [_to_torch(seg[li], device, index=j)
                        for j in range(scale.shape[0])
                        for li in range(len(seg))]
-    out["layers"] = layers
+    return layers
+
+
+def params_from_jax(tree, device="cpu"):
+    """JAX ``Model.init`` pytree (numpy leaves) → port parameters."""
+    out = {k: _to_torch(v, device) for k, v in tree.items()
+           if k not in ("segments", "encoder")}
+    out["layers"] = _layers_from_jax(tree["segments"], device)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "layers": _layers_from_jax(enc["segments"], device),
+            "final_norm": _to_torch(enc["final_norm"], device)}
     return out
 
 
@@ -108,19 +122,32 @@ def stacked_layout(params, cfg=None, join=torch.stack):
     ``join=Stacked`` they stay where they are and a scan site's leaf is a
     :class:`Stacked` of its layers' tensors."""
     copy = _cpu if join is torch.stack else (lambda t: t)
-    layers = [copy(p) for p in params["layers"]]
-    out = {k: copy(v) for k, v in params.items() if k != "layers"}
+    out = {k: copy(v) for k, v in params.items()
+           if k not in ("layers", "encoder")}
     if cfg is None:
+        layers = [copy(p) for p in params["layers"]]
         out["segments"] = [[_stack(*layers, join=join)]]
         return out
+    out["segments"] = _segments(params["layers"], cfg, lm.layer_specs(cfg),
+                                join, copy)
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "segments": _segments(enc["layers"], cfg, lm.encoder_specs(cfg),
+                                  join, copy),
+            "final_norm": copy(enc["final_norm"])}
+    return out
+
+
+def _segments(layers, cfg, specs, join, copy):
+    layers = [copy(p) for p in layers]
     segs = []
-    for si, li, idx, _, scan in lm.layout_layers(cfg, lm.layer_specs(cfg)):
+    for si, li, idx, _, scan in lm.layout_layers(cfg, specs):
         if si == len(segs):
             segs.append([])
         segs[si].append(_stack(*(layers[i] for i in idx), join=join)
                         if scan else layers[idx[0]])
-    out["segments"] = segs
-    return out
+    return segs
 
 
 def params_to_numpy(params, cfg=None):

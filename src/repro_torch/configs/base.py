@@ -9,9 +9,8 @@ validation at construction, a registry keyed by ``--arch`` id, and
 serialization helpers used by the checkpointing manifest.
 
 This is the PyTorch package's own copy of ``repro.configs.base``: the
-same fields and values, minus ``use_pallas``. Only the architectures the
-port serves are registered (``qwen1_5_0_5b``, ``recurrentgemma_2b``,
-``rwkv6_7b``).
+same fields and values, minus ``use_pallas``. Every architecture of
+the reference is registered, each from its own copied module.
 """
 from __future__ import annotations
 
@@ -319,4 +318,6 @@ def _ensure_loaded():
     if _REGISTRY:
         return
     from repro_torch.configs import (  # noqa: F401  (each registers itself)
-        qwen1_5_0_5b, recurrentgemma_2b, rwkv6_7b)
+        internlm2_1_8b, internvl2_2b, kimi_k2_1t_a32b, mixtral_8x7b,
+        phi3_mini_3_8b, qwen1_5_0_5b, recurrentgemma_2b, rwkv6_7b,
+        starcoder2_15b, whisper_medium)

@@ -1,0 +1,33 @@
+"""phi3-mini-3.8b — dense transformer, RoPE + SwiGLU + GQA [arXiv:2404.14219].
+
+32L d_model=3072 32H (GQA kv=32) d_ff=8192 vocab=32064.
+"""
+from repro_torch.configs.base import ModelConfig, ShardingProfile, register
+
+CONFIG = ModelConfig(
+    name="phi3-mini-3.8b",
+    family="dense",
+    n_layers=32,
+    d_model=3072,
+    n_heads=32,
+    n_kv_heads=32,
+    d_ff=8192,
+    vocab=32064,
+    source="arXiv:2404.14219",
+)
+
+REDUCED = ModelConfig(
+    name="phi3-mini-3.8b",
+    family="dense",
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=4,
+    d_ff=128,
+    vocab=512,
+    max_seq_len=256,
+    sharding=ShardingProfile(remat="none"),
+    source="reduced",
+)
+
+register(CONFIG, REDUCED)

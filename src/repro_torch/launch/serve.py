@@ -7,6 +7,14 @@ KV cache, on the card unless ``--device cpu`` is given.
     ... --arch recurrentgemma-2b | rwkv6-7b
                             # the recurrent families; their per-slot
                             # state rows lease pages from the MMU too
+    ... --arch internlm2-1.8b | phi3-mini-3.8b | starcoder2-15b
+                            # the other dense families (GELU FFN)
+    ... --arch mixtral-8x7b | kimi-k2-1t-a32b
+                            # the MoE families (gather dispatch)
+    ... --arch internvl2-2b | whisper-medium
+                            # the VLM (stub patches before the prompt)
+                            # and the enc-dec (stub frames, cross K/V in
+                            # the state rows): monolithic only
     ... --device cpu        # plain PyTorch versions of the kernels
     ... --virtualized --policy {fev,bev,hybrid,wfq,slo} [--slo-ms 50]
                             # every step through a VMM tenant's data plane
@@ -27,7 +35,10 @@ lease segments from the tenant's MMU pool (sized from the card's free
 memory once the weights are on it, or 1 GiB on the CPU), newcomers defer
 under pool pressure, every prefill and
 decode step runs through ``tenant.device.run``, and the VMM's stats print
-at the end.
+at the end. The VLM's image patches and the enc-dec's audio frames are
+stub frontend outputs drawn from ``np.random.default_rng(0)``, one row per
+batch slot, as the reference's entry point draws them; ``--capacity``
+counts a VLM slot's text tokens, its image rows come on top.
 """
 from __future__ import annotations
 
@@ -103,21 +114,28 @@ def main(argv=None):
     if args.models:
         return serve_mux(args, device, obs)
     cfg = get_config(args.arch, reduced=not args.full)
+    frontend = cfg.family == "vlm" or cfg.is_encdec
+    if frontend and args.chunk_tokens > 0:
+        ap.error(f"--chunk-tokens: {args.arch} prefills monolithically "
+                 f"(its frontend needs the whole prompt at once)")
     model = Model(cfg, device=device)
     if args.share_prefix and model.state_row_bytes() > 0:
-        ap.error(f"--share-prefix: {args.arch} keeps recurrent state rows, "
-                 f"which a shared prefix's KV pages do not carry")
+        ap.error(f"--share-prefix: {args.arch} keeps per-slot state rows "
+                 f"(recurrent state or cross K/V), which a shared "
+                 f"prefix's KV pages do not carry")
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    params = model.compute_params(model.init(gen))
+    params = model.init_compute_params(gen)
     vmm = None
     kw = dict(page_size=args.page_size, obs=obs, obs_tenant="server",
               chunk_tokens=args.chunk_tokens, state_paging=True,
-              share_prefix=args.share_prefix, swap=args.swap)
+              share_prefix=args.share_prefix, swap=args.swap,
+              extra_batch=frontend_inputs(cfg, args.batch))
     if args.virtualized:
         vmm, tenant = virtual_server(device, args.policy, args.slo_ms, obs)
         kw.update(virtualized_engine_kw(tenant))
-    engine = ServeEngine(cfg, model, args.batch, args.capacity, **kw)
+    engine = ServeEngine(cfg, model, args.batch,
+                         args.capacity + model.n_prefix, **kw)
 
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
@@ -169,6 +187,21 @@ def main(argv=None):
         print("[serve] vmm stats:", vmm.stats())
         vmm.shutdown()
     return engine
+
+
+def frontend_inputs(cfg, batch):
+    """The stub frontend outputs, one row per batch slot: a VLM's image
+    patches, an enc-dec's audio frames ({} otherwise) — drawn from
+    ``np.random.default_rng(0)`` in the reference's order."""
+    extra = {}
+    rng = np.random.default_rng(0)
+    shape = (batch, cfg.frontend.n_tokens, cfg.frontend.d_in) \
+        if cfg.frontend is not None else None
+    if cfg.family == "vlm":
+        extra["patches"] = rng.standard_normal(shape, dtype=np.float32)
+    if cfg.is_encdec:
+        extra["frames"] = rng.standard_normal(shape, dtype=np.float32)
+    return extra
 
 
 def serve_mux(args, device, obs):

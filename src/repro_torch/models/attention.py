@@ -1,10 +1,15 @@
 """Attention — the PyTorch counterparts of ``repro.models.attention``:
 QKV projection with bias, the direct (one masked score tensor) attention
 core, full-sequence self-attention through the flash op (with ring
-caches of any capacity), one-token decode against a ring cache through
-the ring decode op, paged decode through the fused op, and chunked
-prefill against leased pages in plain PyTorch. Every path that a
-sliding-window (``swa``) layer runs takes its ``window``.
+caches of any capacity; the non-causal encoder through the plain core,
+as in the reference), one-token decode against a ring cache through
+the ring decode op, paged decode through the fused op, chunked
+prefill against leased pages in plain PyTorch, and the enc-dec cross
+attention (``cross_kv``, ``cross_attn_full``, ``cross_attn_decode``,
+plain PyTorch as in the reference). Every path that a sliding-window
+(``swa``) layer runs takes its ``window``; rope is applied only when
+``cfg.use_rope`` (whisper adds sinusoidal positions to its embeddings
+instead).
 
 GQA is computed in grouped form where a kernel does it (head
 arithmetic, no repeated K/V) and with ``repeat_kv`` in the plain core,
@@ -56,6 +61,10 @@ def _project_qkv(cfg, p, x):
     return q, k, v
 
 
+def _rope(cfg, t, positions):
+    return apply_rope(t, positions, cfg.rope_theta) if cfg.use_rope else t
+
+
 def _out_proj(cfg, p, o):
     cd = dt(cfg.compute_dtype)
     return torch.einsum("bshk,hkd->bsd", o.to(cd), p["wo"].to(cd))
@@ -70,8 +79,9 @@ def repeat_kv(k, n_rep):
     return k if n_rep == 1 else k.repeat_interleave(n_rep, dim=2)
 
 
-def attention_core(q, k, v, *, q_pos, k_pos, window=0):
-    """Causal attention by absolute positions, with a sliding window when
+def attention_core(q, k, v, *, q_pos, k_pos, window=0, causal=True):
+    """Attention by absolute positions — causal unless ``causal`` is
+    False (the encoder, cross attention), with a sliding window when
     ``window > 0`` (``(q_pos - k_pos) < window``, the reference's
     ``_mask_bias``): q (B,Sq,Hq,hd); k/v (B,Sk,Hkv,hd) → (B,Sq,Hq,hd).
     One dense masked score tensor for every Sk in this slice (the
@@ -82,7 +92,10 @@ def attention_core(q, k, v, *, q_pos, k_pos, window=0):
     k = repeat_kv(k, Hq // k.shape[2])
     v = repeat_kv(v, Hq // v.shape[2])
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / math.sqrt(hd))
-    ok = q_pos[:, None] >= k_pos[None, :]
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                    device=q.device)
+    if causal:
+        ok &= q_pos[:, None] >= k_pos[None, :]
     if window > 0:
         ok &= (q_pos[:, None] - k_pos[None, :]) < window
     s = s + torch.where(ok, 0.0, _NEG)
@@ -96,10 +109,13 @@ def attention_core(q, k, v, *, q_pos, k_pos, window=0):
 # ---------------------------------------------------------------------------
 
 
-def attn_full(cfg, p, x, positions, cache_capacity=0, window=0):
+def attn_full(cfg, p, x, positions, cache_capacity=0, window=0,
+              causal=True):
     """Causal (sliding-window when ``window > 0``) self-attention over a
-    full sequence through the flash op.
-    Returns (y, {"k","v"}) with the roped K/V in compute dtype. With no
+    full sequence through the flash op; with ``causal=False`` (the
+    encoder) through the plain core, as the reference does (its flash
+    path is causal only). Returns (y, {"k","v"}) with the roped K/V in
+    compute dtype. With no
     ``cache_capacity`` (or C == S) the cache is (B,S,Hkv,hd) — what the
     engine scatters into its pages; with C > S it is padded with zeros to
     C slots; with C < S it keeps the last C tokens, rolled so that
@@ -107,10 +123,14 @@ def attn_full(cfg, p, x, positions, cache_capacity=0, window=0):
     reference)."""
     S = x.shape[1]
     q, k, v = _project_qkv(cfg, p, x)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    y = flash_attention_op(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=True, window=window)
+    q = _rope(cfg, q, positions)
+    k = _rope(cfg, k, positions)
+    if causal:
+        y = flash_attention_op(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True, window=window)
+    else:
+        y = attention_core(q, k, v, q_pos=positions, k_pos=positions,
+                           window=window, causal=False)
     C = cache_capacity or S
     if C >= S:
         pad = (0, 0, 0, 0, 0, C - S)
@@ -149,8 +169,8 @@ def attn_decode(cfg, p, x1, cache, pos, pvec, window=0):
     is); ``pvec`` the same as a (1,) int64 tensor. Returns y (B,1,D)."""
     C = cache["k"].shape[1]
     q, k, v = _project_qkv(cfg, p, x1)
-    q = apply_rope(q, pvec, cfg.rope_theta)
-    k = apply_rope(k, pvec, cfg.rope_theta)
+    q = _rope(cfg, q, pvec)
+    k = _rope(cfg, k, pvec)
     slot = torch.remainder(pvec, C)
     cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
     cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
@@ -182,8 +202,8 @@ def attn_decode_paged(cfg, p, x1, pools, positions, block_tables, live,
     ps = pools["k"].shape[1]
     q, k, v = _project_qkv(cfg, p, x1)
     pos_c = positions.clamp_min(0)
-    q = apply_rope(q, pos_c[:, None], cfg.rope_theta)
-    k = apply_rope(k, pos_c[:, None], cfg.rope_theta)
+    q = _rope(cfg, q, pos_c[:, None])
+    k = _rope(cfg, k, pos_c[:, None])
     lengths = (positions + 1).clamp_min(0).to(torch.int32)
     o = fused_decode_step_op(q.contiguous(), k.contiguous(), v.contiguous(),
                              pools["k"], pools["v"], lengths, block_tables,
@@ -208,8 +228,8 @@ def attn_prefill_chunk_paged(cfg, p, x, pools, positions, block_row,
     causality. Returns y (1, L, D)."""
     _, ps, Hkv, hd = pools["k"].shape
     q, k, v = _project_qkv(cfg, p, x)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = _rope(cfg, q, positions)
+    k = _rope(cfg, k, positions)
     pages = block_row[positions // ps].long()
     offs = positions % ps
     pools["k"].index_put_((pages, offs), k[0])
@@ -220,3 +240,55 @@ def attn_prefill_chunk_paged(cfg, p, x, pools, positions, block_row,
     y = attention_core(q, kb, vb, q_pos=positions,
                        k_pos=torch.arange(S, device=x.device), window=window)
     return _out_proj(cfg, p, y)
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (enc-dec): K/V of the encoder output, plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def cross_kv(cfg, p, enc_out):
+    """Cross-attention K/V of the encoder output (B, S_enc, D) →
+    {"k","v"} (B, S_enc, Hkv, hd) in the compute dtype — computed once at
+    prefill and kept in the slot's rows."""
+    cd = dt(cfg.compute_dtype)
+    e = enc_out.to(cd)
+    k = torch.einsum("bsd,dhk->bshk", e, p["wk"].to(cd))
+    v = torch.einsum("bsd,dhk->bshk", e, p["wv"].to(cd))
+    if "bk" in p:
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    return {"k": k, "v": v}
+
+
+def _cross_q(cfg, p, x, dtype):
+    q = torch.einsum("bsd,dhk->bshk", x.to(dtype), p["wq"].to(dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(dtype)
+    return q
+
+
+def cross_attn_full(cfg, p, x, ckv):
+    """Every query position of x (B, S, D) over all encoder rows of
+    ``ckv`` (no mask; reference ``lm.py:196-206``) → y (B, S, D)."""
+    q = _cross_q(cfg, p, x, ckv["k"].dtype)
+    Sq, Sk = q.shape[1], ckv["k"].shape[1]
+    o = attention_core(q, ckv["k"], ckv["v"], causal=False,
+                       q_pos=torch.arange(Sq, device=x.device),
+                       k_pos=torch.arange(Sk, device=x.device))
+    return _out_proj(cfg, p, o)
+
+
+def cross_attn_decode(cfg, p, x1, ckv):
+    """One token a slot (B, 1, D) against the slot's encoder K/V rows
+    (B, S_enc, Hkv, hd), grouped GQA as in the reference → y (B, 1, D)."""
+    B = x1.shape[0]
+    q = _cross_q(cfg, p, x1, dt(cfg.compute_dtype))
+    hd = q.shape[-1]
+    Hkv = ckv["k"].shape[2]
+    qg = q.reshape(B, 1, Hkv, -1, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, ckv["k"]).float() \
+        / math.sqrt(hd)
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", pr.to(ckv["v"].dtype), ckv["v"])
+    return _out_proj(cfg, p, o.reshape(B, 1, -1, hd))

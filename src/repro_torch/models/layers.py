@@ -1,11 +1,12 @@
 """Shared model layers: norms, rotary and sinusoidal positions, the swiglu
-FFN, inits and dtype helpers — the PyTorch counterparts of
+and GELU FFNs, inits and dtype helpers — the PyTorch counterparts of
 ``repro.models.layers``.
 
 Conventions (as in the reference)
 ---------------------------------
 * Parameters live in ``cfg.param_dtype``; compute casts to
-  ``cfg.compute_dtype``; norms and rope run in fp32 and cast back.
+  ``cfg.compute_dtype`` (once, ``Model.compute_params``); norms and rope
+  run in fp32 and cast back.
 * Weights keep the reference's layouts (``w_gate (d, ff)``,
   ``wq (d, H, hd)``, ...), so every product reads like its JAX einsum.
 * Inits draw from an explicit ``torch.Generator`` with the reference's
@@ -33,13 +34,14 @@ def dense_init(gen, d_in, d_out, dtype, device, scale=None):
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
                     device=device)
-    return (w * scale).to(dt(dtype))
+    # scaled in place: a leaf of kimi-k2's experts is 22.5 GB in fp32
+    return w.mul_(scale).to(dt(dtype))
 
 
 def embed_init(gen, vocab, d, dtype, device):
     w = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
                     device=device)
-    return (w * 0.02).to(dt(dtype))
+    return w.mul_(0.02).to(dt(dtype))
 
 
 def init_norm(cfg, device):
@@ -51,11 +53,21 @@ def init_norm(cfg, device):
     return p
 
 
-def init_ffn(cfg, gen, device):
-    d, ff, pd = cfg.d_model, cfg.d_ff, cfg.param_dtype
-    return {"w_gate": dense_init(gen, d, ff, pd, device),
-            "w_up": dense_init(gen, d, ff, pd, device),
-            "w_down": dense_init(gen, ff, d, pd, device)}
+def init_ffn(cfg, gen, device, kind, d_ff):
+    """A dense FFN of width ``d_ff``: ``swiglu`` or ``gelu`` (with the
+    biases ``b_up`` / ``b_down``); the layer's spec gives both, as kimi's
+    dense first layer differs from the config's FFN."""
+    d, ff, pd = cfg.d_model, d_ff, cfg.param_dtype
+    if kind == "swiglu":
+        return {"w_gate": dense_init(gen, d, ff, pd, device),
+                "w_up": dense_init(gen, d, ff, pd, device),
+                "w_down": dense_init(gen, ff, d, pd, device)}
+    if kind == "gelu":
+        return {"w_up": dense_init(gen, d, ff, pd, device),
+                "b_up": torch.zeros((ff,), dtype=dt(pd), device=device),
+                "w_down": dense_init(gen, ff, d, pd, device),
+                "b_down": torch.zeros((d,), dtype=dt(pd), device=device)}
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -133,15 +145,21 @@ def abs_position_vector(pos, d):
 
 
 # ---------------------------------------------------------------------------
-# Dense FFN (swiglu)
+# Dense FFNs (swiglu / gelu)
 # ---------------------------------------------------------------------------
 
 
-def apply_ffn(cfg, p, x):
-    if cfg.ffn_kind != "swiglu":
-        raise NotImplementedError(f"ffn {cfg.ffn_kind!r} is not ported yet")
+def apply_ffn(cfg, p, x, kind):
+    """swiglu, or the GELU MLP with biases in ``jax.nn.gelu``'s default
+    tanh form (the exact erf form differs by ~1e-3)."""
     cd = dt(cfg.compute_dtype)
     x = x.to(cd)
-    g = x @ p["w_gate"].to(cd)
-    u = x @ p["w_up"].to(cd)
-    return (F.silu(g) * u) @ p["w_down"].to(cd)
+    if kind == "swiglu":
+        g = x @ p["w_gate"].to(cd)
+        u = x @ p["w_up"].to(cd)
+        return (F.silu(g) * u) @ p["w_down"].to(cd)
+    if kind == "gelu":
+        h = F.gelu(x @ p["w_up"].to(cd) + p["b_up"].to(cd),
+                   approximate="tanh")
+        return h @ p["w_down"].to(cd) + p["b_down"].to(cd)
+    raise ValueError(kind)

@@ -1,7 +1,9 @@
 """LM assembly — the PyTorch counterpart of ``repro.models.lm`` for stacks
-of ``attn | swa | rglru | rwkv`` mixers with ``swiglu | channelmix`` FFNs,
-mixed freely (recurrentgemma's ``(rglru, rglru, swa)`` periods, rwkv6's
-``(rwkv,)``).
+of ``attn | swa | rglru | rwkv`` mixers with ``swiglu | gelu | moe |
+channelmix`` FFNs, mixed freely (recurrentgemma's ``(rglru, rglru,
+swa)`` periods, rwkv6's ``(rwkv,)``, kimi's dense first layer before its
+MoE layers), and with cross attention to an encoder's output in every
+layer of an enc-dec decoder (whisper).
 
 Parameters are a list of per-layer dicts (the reference stacks them on a
 leading period axis for ``jax.lax.scan``; ``bridge.py`` converts, and
@@ -18,7 +20,9 @@ Paged serving state is a dict:
 * ``"rows"``: one dict per layer of per-slot rows, batch-indexed —
   rglru ``{"mixer": {"conv" (B,3,d), "h" (B,d) fp32}}``, rwkv
   ``{"mixer": {"s" (B,H,K,K) fp32, "shift" (B,d)}}``, channelmix
-  ``{"ffn": {"shift" (B,d)}}``, ``{}`` for attention layers. Decode
+  ``{"ffn": {"shift" (B,d)}}``, an enc-dec decoder layer's cross K/V
+  ``{"cross": {"k", "v" (B, S_enc, Hkv, hd)}}`` (written at prefill,
+  read by every decode step), ``{}`` for attention layers. Decode
   updates the live slots' rows in place; a dead slot (position -1) keeps
   its rows, and a prefill chunk reads and writes only its own slot's.
 
@@ -38,19 +42,21 @@ from typing import Tuple
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import apply_ffn, apply_norm, dt, init_ffn, \
     init_norm
 
 MIXERS = ("attn", "swa", "rglru", "rwkv")
-FFNS = ("swiglu", "channelmix")
+FFNS = ("swiglu", "gelu", "moe", "channelmix")
 
 
 @dataclass(frozen=True)
 class LayerSpec:
     mixer: str                  # attn | swa | rglru | rwkv
-    ffn: str                    # swiglu | channelmix
+    ffn: str                    # swiglu | gelu | moe | channelmix
     d_ff: int
+    cross: bool = False         # cross attention to the encoder output
 
     @property
     def is_attn(self) -> bool:
@@ -58,32 +64,48 @@ class LayerSpec:
 
 
 def layer_specs(cfg) -> Tuple[LayerSpec, ...]:
-    if cfg.is_encdec:
-        raise NotImplementedError("cross attention is not ported yet")
+    """The decoder's layers (with cross attention in an enc-dec model); a
+    MoE config's first ``first_dense_layers`` get a swiglu FFN of
+    ``dense_d_ff`` (reference ``lm.py:55-63``)."""
     out = []
     for i in range(cfg.n_layers):
-        spec = LayerSpec(cfg.layer_mixer(i), cfg.ffn_kind, cfg.d_ff)
+        ffn, d_ff = cfg.ffn_kind, cfg.d_ff
+        if ffn == "moe" and i < cfg.moe.first_dense_layers:
+            ffn, d_ff = "swiglu", cfg.moe.dense_d_ff
+        spec = LayerSpec(cfg.layer_mixer(i), ffn, d_ff, cfg.is_encdec)
         if spec.mixer not in MIXERS or spec.ffn not in FFNS:
             raise NotImplementedError(
-                f"layer {i}: {spec.mixer}/{spec.ffn} is not ported yet "
+                f"layer {i}: {spec.mixer}/{spec.ffn} is not ported "
                 f"(mixers {MIXERS}, FFNs {FFNS})")
         out.append(spec)
     return tuple(out)
 
 
+def encoder_specs(cfg) -> Tuple[LayerSpec, ...]:
+    """An enc-dec model's encoder: non-causal attention with the GELU
+    FFN in every layer (reference ``model.py:36-39``)."""
+    return tuple(LayerSpec("attn", "gelu", cfg.d_ff)
+                 for _ in range(cfg.encoder.n_layers))
+
+
 def build_layout(cfg, specs):
-    """The reference's segment layout (``lm.py:66-85``, no MoE prefix):
-    ``[("scan", period_specs, n)]`` over whole periods of
-    ``cfg.block_pattern`` plus an ``("unroll", tail_specs)`` remainder."""
+    """The reference's segment layout (``lm.py:66-85``): an
+    ``("unroll", prefix)`` of a MoE config's dense first layers, then
+    ``("scan", period_specs, n)`` over whole periods of
+    ``cfg.block_pattern`` and an ``("unroll", tail_specs)`` remainder."""
     if not cfg.sharding.scan_layers:
         return [("unroll", tuple(specs))]
+    prefix = cfg.moe.first_dense_layers if cfg.ffn_kind == "moe" else 0
     p = len(cfg.block_pattern)
-    n_scan, tail = divmod(len(specs), p)
+    body = specs[prefix:]
+    n_scan, tail = divmod(len(body), p)
     layout = []
+    if prefix:
+        layout.append(("unroll", tuple(specs[:prefix])))
     if n_scan:
-        layout.append(("scan", tuple(specs[:p]), n_scan))
+        layout.append(("scan", tuple(body[:p]), n_scan))
     if tail:
-        layout.append(("unroll", tuple(specs[n_scan * p:])))
+        layout.append(("unroll", tuple(body[n_scan * p:])))
     return layout
 
 
@@ -133,15 +155,22 @@ def init_layer(cfg, gen, spec, device):
         p["mixer"] = rec.init_rglru(cfg, gen, device)
     else:
         p["mixer"] = rec.init_rwkv_tmix(cfg, gen, device)
-    if spec.ffn == "channelmix":
+    if spec.cross:
+        p["norm_cross"] = init_norm(cfg, device)
+        p["cross"] = attn.init_attn(cfg, gen, device)
+    if spec.ffn == "moe":
+        p["ffn"] = moe_mod.init_moe(cfg, gen, device)
+    elif spec.ffn == "channelmix":
         p["ffn"] = rec.init_channelmix(cfg, gen, device)
     else:
-        p["ffn"] = init_ffn(cfg, gen, device)
+        p["ffn"] = init_ffn(cfg, gen, device, kind=spec.ffn, d_ff=spec.d_ff)
     return p
 
 
-def init_layer_rows(cfg, spec, batch, device):
-    """Zeroed per-slot rows of one layer (``{}`` for attention)."""
+def init_layer_rows(cfg, spec, batch, device, enc_len=0):
+    """Zeroed per-slot rows of one layer (``{}`` for self-attention
+    without cross attention); cross K/V rows hold ``enc_len`` encoder
+    positions."""
     cd = dt(cfg.compute_dtype)
     d = cfg.d_model
     f32 = torch.float32
@@ -157,22 +186,28 @@ def init_layer_rows(cfg, spec, batch, device):
             "s": torch.zeros((batch, d // dk, dk, dk), dtype=f32,
                              device=device),
             "shift": torch.zeros((batch, d), dtype=cd, device=device)}
+    if spec.cross:
+        shape = (batch, enc_len, cfg.n_kv_heads, cfg.d_head)
+        rows["cross"] = {kk: torch.zeros(shape, dtype=cd, device=device)
+                         for kk in ("k", "v")}
     if spec.ffn == "channelmix":
         rows["ffn"] = {"shift": torch.zeros((batch, d), dtype=cd,
                                             device=device)}
     return rows
 
 
-def init_paged_state(cfg, specs, batch, num_pages, page_size, device):
+def init_paged_state(cfg, specs, batch, num_pages, page_size, device,
+                     enc_len=0):
     """Zeroed paged serving state: K/V pools (La, P, ps, Hkv, hd) in the
     compute dtype over the attn/swa layers, and per-slot rows of ``batch``
-    slots for every other leaf."""
+    slots for every other leaf (cross K/V of ``enc_len`` rows)."""
     n_attn = sum(s.is_attn for s in specs)
     shape = (n_attn, num_pages, page_size, cfg.n_kv_heads, cfg.d_head)
     cd = dt(cfg.compute_dtype)
     return {"k": torch.zeros(shape, dtype=cd, device=device),
             "v": torch.zeros(shape, dtype=cd, device=device),
-            "rows": [init_layer_rows(cfg, s, batch, device) for s in specs]}
+            "rows": [init_layer_rows(cfg, s, batch, device, enc_len)
+                     for s in specs]}
 
 
 def ring_capacity(cfg, specs, capacity):
@@ -190,7 +225,7 @@ def ring_capacity(cfg, specs, capacity):
     return caps.pop() if caps else None
 
 
-def init_stack_cache(cfg, specs, batch, capacity, device):
+def init_stack_cache(cfg, specs, batch, capacity, device, enc_len=0):
     """Zeroed ring caches of any stack (reference ``lm.py:116-141``,
     ``:361-375``): ``"k"``/``"v"`` (La, B, C, Hkv, hd) in the compute dtype
     over the attention layers (C from :func:`ring_capacity`) and
@@ -204,7 +239,7 @@ def init_stack_cache(cfg, specs, batch, capacity, device):
         cd = dt(cfg.compute_dtype)
         caches["k"] = torch.zeros(shape, dtype=cd, device=device)
         caches["v"] = torch.zeros(shape, dtype=cd, device=device)
-    rows = [init_layer_rows(cfg, s, batch, device) for s in specs]
+    rows = [init_layer_rows(cfg, s, batch, device, enc_len) for s in specs]
     if any(rows):
         caches["rows"] = rows
     return caches
@@ -286,11 +321,12 @@ def _keep_live(rows, new, live):
         leaf.index_copy_(0, live, new[name][live].to(leaf.dtype))
 
 
-def _mixer_full(cfg, spec, p, h, positions, capacity, row0=None):
+def _mixer_full(cfg, spec, p, h, positions, capacity, row0=None,
+                causal=True):
     """→ (y, K/V cache or None, mixer rows or None)."""
     if spec.is_attn:
         y, kv = attn.attn_full(cfg, p, h, positions, capacity,
-                               window=_window(cfg, spec))
+                               window=_window(cfg, spec), causal=causal)
         return y, kv, None
     if spec.mixer == "rglru":
         y, mc = rec.rglru_full(
@@ -305,20 +341,36 @@ def _ffn_full(cfg, spec, p, h2, row0=None):
     """→ (y, ffn rows or None)."""
     if spec.ffn == "channelmix":
         return rec.channelmix_full(cfg, p, h2, cache=row0, make_cache=True)
-    return apply_ffn(cfg, p, h2), None
+    return _ffn(cfg, spec, p, h2), None
 
 
-def apply_layer_full(cfg, spec, p, x, positions, capacity=0):
-    """Full-sequence layer → (x', K/V of this layer or None, its rows)."""
+def _ffn(cfg, spec, p, h2):
+    """A stateless FFN: the MoE (its aux loss unused when serving) or a
+    dense one of the layer's kind."""
+    if spec.ffn == "moe":
+        return moe_mod.apply_moe(cfg, p, h2)[0]
+    return apply_ffn(cfg, p, h2, kind=spec.ffn)
+
+
+def apply_layer_full(cfg, spec, p, x, positions, capacity=0, enc_out=None,
+                     causal=True):
+    """Full-sequence layer → (x', K/V of this layer or None, its rows);
+    an enc-dec decoder layer attends to ``enc_out`` after its mixer and
+    keeps the cross K/V in its rows."""
     h = apply_norm(cfg, p["norm1"], x)
     y, kv, mrows = _mixer_full(cfg, spec, p["mixer"], h, positions,
-                               capacity)
+                               capacity, causal=causal)
     x = x + y.to(x.dtype)
-    h2 = apply_norm(cfg, p["norm2"], x)
-    y2, frows = _ffn_full(cfg, spec, p["ffn"], h2)
     rows = {}
     if mrows is not None:
         rows["mixer"] = mrows
+    if spec.cross:
+        hc = apply_norm(cfg, p["norm_cross"], x)
+        ckv = attn.cross_kv(cfg, p["cross"], enc_out)
+        x = x + attn.cross_attn_full(cfg, p["cross"], hc, ckv).to(x.dtype)
+        rows["cross"] = ckv
+    h2 = apply_norm(cfg, p["norm2"], x)
+    y2, frows = _ffn_full(cfg, spec, p["ffn"], h2)
     if frows is not None:
         rows["ffn"] = frows
     return x + y2.to(x.dtype), kv, rows
@@ -341,14 +393,24 @@ def apply_layer_decode_ring(cfg, spec, p, x, cache, rows, pos, pvec):
             else rec.rwkv_tmix_decode
         y, mc = step(cfg, p["mixer"], h, rows["mixer"])
         _copy_rows(rows["mixer"], mc)
-    x = x + y.to(x.dtype)
+    x = _cross_decode(cfg, spec, p, x + y.to(x.dtype), rows)
     h2 = apply_norm(cfg, p["norm2"], x)
     if spec.ffn == "channelmix":
         y2, fc = rec.channelmix_decode(cfg, p["ffn"], h2, rows["ffn"])
         _copy_rows(rows["ffn"], fc)
     else:
-        y2 = apply_ffn(cfg, p["ffn"], h2)
+        y2 = _ffn(cfg, spec, p["ffn"], h2)
     return x + y2.to(x.dtype)
+
+
+def _cross_decode(cfg, spec, p, x, rows):
+    """The decode step's cross attention over the slots' encoder rows
+    (identity for a layer without it)."""
+    if not spec.cross:
+        return x
+    hc = apply_norm(cfg, p["norm_cross"], x)
+    return x + attn.cross_attn_decode(cfg, p["cross"], hc,
+                                      rows["cross"]).to(x.dtype)
 
 
 def apply_layer_decode(cfg, spec, p, x, pools, rows, positions,
@@ -363,13 +425,15 @@ def apply_layer_decode(cfg, spec, p, x, pools, rows, positions,
             else rec.rwkv_tmix_decode
         y, mc = step(cfg, p["mixer"], h, rows["mixer"])
         _keep_live(rows["mixer"], mc, live)
-    x = x + y.to(x.dtype)
+    x = _cross_decode(cfg, spec, p, x + y.to(x.dtype), rows)
     h2 = apply_norm(cfg, p["norm2"], x)
     if spec.ffn == "channelmix":
         y2, fc = rec.channelmix_decode(cfg, p["ffn"], h2, rows["ffn"])
         _keep_live(rows["ffn"], fc, live)
     else:
-        y2 = apply_ffn(cfg, p["ffn"], h2)
+        # a MoE routes every slot's row, dead ones included: they take
+        # capacity as the reference's do
+        y2 = _ffn(cfg, spec, p["ffn"], h2)
     return x + y2.to(x.dtype)
 
 
@@ -378,6 +442,11 @@ def apply_layer_chunk(cfg, spec, p, x, pools, rows, positions, block_row,
     """One slot's prompt chunk: attention through the slot's pages; every
     row leaf reads row ``slot`` as its initial state and gets the chunk's
     final state written back, so no other slot is touched."""
+    if spec.cross:
+        raise NotImplementedError(
+            "chunked prefill: enc-dec cross attention (whisper prefills "
+            "monolithically)")
+
     def row0(key):
         return {n: leaf[slot:slot + 1] for n, leaf in rows[key].items()}
 
@@ -412,19 +481,22 @@ def _pools(state, a):
     return None if a is None else {"k": state["k"][a], "v": state["v"][a]}
 
 
-def apply_stack_full(cfg, specs, layers, x, positions, capacity=0):
+def apply_stack_full(cfg, specs, layers, x, positions, capacity=0,
+                     enc_out=None, causal=True):
     """→ (x, caches): ``{"k","v"}`` stacked (La, B, C, Hkv, hd) over the
     attention layers when there are any — C = S with no ``capacity``,
     else the rings of :func:`init_stack_cache` (a ``swa`` layer keeps its
     last ``min(window, capacity)`` tokens, where the reference keeps
     ``capacity`` and masks all but the window at decode: the same tokens
     are read) — and ``"rows"`` (per layer, batch rows) when any layer
-    has rows."""
+    has rows. ``enc_out`` feeds the cross attention of an enc-dec
+    decoder; the encoder runs with ``causal=False``."""
     ks, vs, rows = [], [], []
     if capacity:
         capacity = ring_capacity(cfg, specs, capacity) or capacity
     for spec, p in zip(specs, layers):
-        x, kv, r = apply_layer_full(cfg, spec, p, x, positions, capacity)
+        x, kv, r = apply_layer_full(cfg, spec, p, x, positions, capacity,
+                                    enc_out, causal)
         if kv is not None:
             ks.append(kv["k"])
             vs.append(kv["v"])
@@ -475,10 +547,10 @@ def apply_stack_chunk(cfg, specs, layers, x, state, positions, block_row,
 def _row_sites(cfg, specs, state):
     """Yield ``(leaves, scan)`` in the reference's leaf order
     (``lm.py:509-582``): layout site by site, row keys in its order
-    (mixer, then ffn), leaf names sorted; ``leaves`` holds one
+    (mixer, cross, ffn), leaf names sorted; ``leaves`` holds one
     batch-indexed tensor per layer the site stacks."""
     for _, _, layers, spec, scan in layout_layers(cfg, specs):
-        for key in ("mixer", "ffn"):
+        for key in ("mixer", "cross", "ffn"):
             rows0 = state["rows"][layers[0]].get(key)
             if rows0 is None:
                 continue

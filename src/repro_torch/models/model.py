@@ -1,20 +1,30 @@
 """Public model API — the PyTorch counterpart of ``repro.models.model``
-for decoders whose layers mix attention, sliding-window attention,
-RG-LRU and RWKV-6 (``qwen1.5-0.5b``, ``recurrentgemma-2b``,
-``rwkv6-7b``).
+for every family of the repo: decoders whose layers mix attention,
+sliding-window attention, RG-LRU and RWKV-6 with swiglu, GELU, MoE or
+channel-mix FFNs, the VLM (projected image patches before the text) and
+the encoder-decoder (whisper: cross attention to the encoded frames).
 
 Parameters are a plain dict of tensors (``tok_embed``, ``lm_head``,
-``final_norm``, ``layers``: one dict per layer) in the reference's
-weight layouts, made by :meth:`Model.init` from a ``torch.Generator`` or
-carried over from JAX by :mod:`repro_torch.bridge`. Serving entry
-points update the paged state (K/V pools and per-slot recurrent rows)
-**in place** and also return it, so call sites read like the
-reference's functional ones. A stack without rope (rwkv6) adds
-sinusoidal absolute positions to the embeddings, as the reference does.
+``final_norm``, ``layers``: one dict per layer; ``projector`` for the
+VLM; ``encoder`` {``layers``, ``final_norm``} and, when the frames'
+width differs from the model's, ``enc_proj`` for the enc-dec) in the
+reference's weight layouts, made by :meth:`Model.init` from a
+``torch.Generator`` or carried over from JAX by
+:mod:`repro_torch.bridge`. Serving entry points update the paged state
+(K/V pools and per-slot rows) **in place** and also return it, so call
+sites read like the reference's functional ones. A stack without rope
+(rwkv6, whisper) adds sinusoidal absolute positions to the embeddings,
+as the reference does.
+
+Batch dicts, as in the reference: ``{"tokens" (B, S)}``; the VLM adds
+``"patches" (B, n_img, d_in)`` (the vision frontend's stub output, whose
+``n_img`` projected rows come before the text), the enc-dec
+``"frames" (B, enc_len, d_in)`` (the conv stem's stub output).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention.ops import sample_tokens_op
 from repro_torch.models import attention as attn
@@ -44,44 +54,85 @@ class Model:
     """Init/apply facade for one architecture on one device."""
 
     def __init__(self, cfg, device=None):
-        if cfg.is_encdec or cfg.family == "vlm" or cfg.logit_softcap \
-                or cfg.tie_embeddings:
+        if cfg.logit_softcap or cfg.tie_embeddings:
             raise NotImplementedError(
-                f"{cfg.name}: only decoder-only stacks are ported so far")
+                f"{cfg.name}: logit soft-capping and tied embeddings are "
+                "not ported (no configuration of the repo uses them)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.specs = lm.layer_specs(cfg)
-        if not cfg.use_rope and any(s.is_attn for s in self.specs):
-            raise NotImplementedError(
-                f"{cfg.name}: attention with absolute positions is not "
-                "ported yet")
+        self.enc_specs = None
+        if cfg.is_encdec:
+            assert (cfg.encoder.d_model or cfg.d_model) == cfg.d_model, \
+                "encoder d_model must match the decoder's"
+            assert cfg.encoder.seq_len == cfg.frontend.n_tokens, \
+                "the encoder reads every frame of the frontend"
+            self.enc_specs = lm.encoder_specs(cfg)
+
+    @property
+    def n_prefix(self) -> int:
+        """Rows a frontend puts before the prompt's tokens in the
+        decoder's sequence (the VLM's image patches; 0 otherwise)."""
+        return self.cfg.frontend.n_tokens if self.cfg.family == "vlm" else 0
+
+    @property
+    def enc_len(self) -> int:
+        """Encoder positions of an enc-dec model's cross rows (0 without
+        an encoder)."""
+        return self.cfg.encoder.seq_len if self.cfg.is_encdec else 0
 
     # ------------------------------------------------------------------
     # Init
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator):
-        """Random parameters with the reference's shapes and scales
-        (``generator`` must live on ``self.device``)."""
+        """Random parameters with the reference's shapes, scales and
+        dtypes (``generator`` must live on ``self.device``)."""
+        return self._init(generator, lambda tree: tree)
+
+    def init_compute_params(self, generator: torch.Generator):
+        """``compute_params(init(generator))``, the same numbers, with
+        each layer cast as it is made: no copy of the whole model in
+        ``param_dtype`` is ever held (starcoder2-15b's fp32 copy would
+        not fit one card beside its bf16 one)."""
+        return self._init(generator, self.compute_params)
+
+    def _init(self, generator, cast):
         cfg, dev, pd = self.cfg, self.device, self.cfg.param_dtype
         params = {
-            "tok_embed": embed_init(generator, cfg.padded_vocab, cfg.d_model,
-                                    pd, dev),
-            "layers": [lm.init_layer(cfg, generator, spec, dev)
+            "tok_embed": cast(embed_init(generator, cfg.padded_vocab,
+                                         cfg.d_model, pd, dev)),
+            "layers": [cast(lm.init_layer(cfg, generator, spec, dev))
                        for spec in self.specs],
             "final_norm": init_norm(cfg, dev),
-            "lm_head": dense_init(generator, cfg.d_model, cfg.padded_vocab,
-                                  pd, dev, scale=0.02),
+            "lm_head": cast(dense_init(generator, cfg.d_model,
+                                       cfg.padded_vocab, pd, dev,
+                                       scale=0.02)),
         }
+        fe = cfg.frontend
+        if fe is not None and fe.kind == "vision":
+            params["projector"] = cast({
+                "w1": dense_init(generator, fe.d_in, cfg.d_model, pd, dev),
+                "w2": dense_init(generator, cfg.d_model, cfg.d_model, pd,
+                                 dev)})
+        if cfg.is_encdec:
+            params["encoder"] = {
+                "layers": [cast(lm.init_layer(cfg, generator, spec, dev))
+                           for spec in self.enc_specs],
+                "final_norm": init_norm(cfg, dev)}
+            if fe.d_in != cfg.d_model:
+                params["enc_proj"] = cast(dense_init(
+                    generator, fe.d_in, cfg.d_model, pd, dev))
         return params
 
     def compute_params(self, params):
-        """Copy of ``params`` with every product weight cast once to the
-        compute dtype — the same numbers as the reference's per-call
-        ``.astype(compute_dtype)``. Norm scales and biases and the leaves
-        the reference reads in fp32 (the recurrent gates, decays and
-        bonus) keep their dtype."""
+        """Copy of ``params`` (a tree of ``init``'s form, or one the
+        reference made, carried over by ``bridge.py``) with every product
+        weight cast once to the compute dtype — the same numbers as the
+        reference's per-call ``.astype(compute_dtype)``. Norm scales and
+        biases and the leaves the reference reads in fp32 (the recurrent
+        gates, decays and bonus, the MoE router) keep their dtype."""
         cd = dt(self.cfg.compute_dtype)
-        keep = ("scale", "bias") + FP32_PARAMS
+        keep = ("scale", "bias", "router") + FP32_PARAMS
 
         def cast(tree):
             if isinstance(tree, dict):
@@ -95,17 +146,55 @@ class Model:
     # ------------------------------------------------------------------
     # Embedding / head
     # ------------------------------------------------------------------
-    def _embed_tokens(self, params, tokens, positions=None):
+    def _embed_tokens(self, params, tokens, positions):
         """Token embeddings in the compute dtype; without rope, plus the
         sinusoidal vectors of ``positions`` ((S,) for a chunk, (B, 1) for
-        a decode step; None → 0..S-1, the reference's numpy table)."""
+        a decode step)."""
         x = params["tok_embed"][tokens].to(dt(self.cfg.compute_dtype))
         if self.cfg.use_rope:
             return x
-        if positions is None:
-            return add_abs_positions(x)
         return x + abs_position_vector(positions, self.cfg.d_model).to(
             x.dtype)
+
+    def _project_patches(self, params, patches):
+        """The VLM projector: GELU (tanh form, ``jax.nn.gelu``'s
+        default) between two products."""
+        cd = dt(self.cfg.compute_dtype)
+        pr = params["projector"]
+        h = F.gelu(patches.to(cd) @ pr["w1"].to(cd), approximate="tanh")
+        return h @ pr["w2"].to(cd)
+
+    def encode(self, params, frames):
+        """Whisper's encoder over the stub frames (B, enc_len, d_in) →
+        (B, enc_len, D): sinusoidal positions, non-causal attention and
+        the GELU FFN in every layer (plain PyTorch attention, as in the
+        reference), then the encoder's final norm."""
+        cfg = self.cfg
+        cd = dt(cfg.compute_dtype)
+        x = frames.to(cd)
+        if "enc_proj" in params:
+            x = x @ params["enc_proj"].to(cd)
+        x = add_abs_positions(x)
+        enc = params["encoder"]
+        x, _ = lm.apply_stack_full(
+            cfg, self.enc_specs, enc["layers"], x,
+            torch.arange(x.shape[1], device=x.device), causal=False)
+        return apply_norm(cfg, enc["final_norm"], x)
+
+    def _assemble_inputs(self, params, batch):
+        """→ (the decoder's input sequence, the encoder output or None):
+        token embeddings after the VLM's projected patches; sinusoidal
+        positions over the whole sequence without rope."""
+        cfg = self.cfg
+        x = params["tok_embed"][batch["tokens"]].to(dt(cfg.compute_dtype))
+        if cfg.family == "vlm":
+            pre = self._project_patches(params, batch["patches"])
+            x = torch.cat([pre, x], dim=1)
+        enc_out = self.encode(params, batch["frames"]) if cfg.is_encdec \
+            else None
+        if not cfg.use_rope:
+            x = add_abs_positions(x)
+        return x, enc_out
 
     def _lm_logits(self, params, x):
         cfg = self.cfg
@@ -123,17 +212,18 @@ class Model:
     # Prefill → (last-token logits, K/V caches)
     # ------------------------------------------------------------------
     def prefill(self, params, batch, capacity=None):
-        """batch {"tokens": (B, S)} → (logits (B, V*), caches): ``"k"``,
-        ``"v"`` (La, B, C, Hkv, hd) over the attention layers — C = S with
-        no ``capacity``, else ring caches of ``capacity`` slots (position
-        p at slot p % C) — and, for recurrent layers, ``"rows"`` (one dict
-        of batch rows per layer; see ``lm``)."""
-        tokens = batch["tokens"]
-        x = self._embed_tokens(params, tokens)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        """batch {"tokens": (B, S)} (+ ``"patches"`` / ``"frames"``) →
+        (logits (B, V*), caches): ``"k"``, ``"v"`` (La, B, C, Hkv, hd)
+        over the attention layers — C = S (the VLM's ``n_prefix`` patch
+        rows + S) with no ``capacity``, else ring caches of ``capacity``
+        slots (position p at slot p % C) — and, for recurrent and
+        cross-attention layers, ``"rows"`` (one dict of batch rows per
+        layer; see ``lm``)."""
+        x, enc_out = self._assemble_inputs(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)
         x, caches = lm.apply_stack_full(self.cfg, self.specs,
                                         params["layers"], x, positions,
-                                        capacity or 0)
+                                        capacity or 0, enc_out=enc_out)
         return self._lm_logits(params, x[:, -1:])[:, 0], caches
 
     # ------------------------------------------------------------------
@@ -153,22 +243,32 @@ class Model:
 
     def init_cache(self, batch_size, capacity):
         """Zeroed ring caches of ``capacity`` slots (a ``swa`` layer's
-        ring holds ``min(window, capacity)``) and, for recurrent layers,
-        zeroed rows — the form ``prefill(capacity=)`` returns."""
+        ring holds ``min(window, capacity)``) and, for recurrent and
+        cross-attention layers, zeroed rows — the form
+        ``prefill(capacity=)`` returns."""
         return lm.init_stack_cache(self.cfg, self.specs, batch_size,
-                                   capacity, self.device)
+                                   capacity, self.device, self.enc_len)
 
     def input_specs(self, cell):
         """→ batch dict of meta tensors (shape and dtype, no data) for a
         ``ShapeCell`` — the stand-in for the reference's
         ``ShapeDtypeStruct``s."""
+        cfg = self.cfg
         B, S = cell.global_batch, cell.seq_len
 
         def meta(shape, dtype):
             return torch.empty(shape, dtype=dtype, device="meta")
         if cell.kind == "decode":
             return {"token": meta((B, 1), torch.int32)}
-        batch = {"tokens": meta((B, S), torch.int32)}
+        batch, s_text = {}, S
+        if cfg.family == "vlm":
+            s_text = S - cfg.frontend.n_tokens
+            batch["patches"] = meta((B, cfg.frontend.n_tokens,
+                                     cfg.frontend.d_in), torch.float32)
+        if cfg.is_encdec:
+            batch["frames"] = meta((B, cfg.frontend.n_tokens,
+                                    cfg.frontend.d_in), torch.float32)
+        batch["tokens"] = meta((B, s_text), torch.int32)
         if cell.kind == "train":
             batch["labels"] = meta((B, S), torch.int32)
             batch["mask"] = meta((B, S), torch.float32)
@@ -180,9 +280,10 @@ class Model:
     def init_paged_state(self, batch_size, num_pages, page_size):
         """Serving state: K/V page pools (La, P, ps, Hkv, hd) over the
         attn/swa layers, per-slot rows of ``batch_size`` slots for every
-        recurrent leaf."""
-        return lm.init_paged_state(self.cfg, self.specs, batch_size,
-                                   num_pages, page_size, self.device)
+        recurrent leaf and every cross K/V (``enc_len`` rows)."""
+        return lm.init_paged_state(
+            self.cfg, self.specs, batch_size, num_pages, page_size,
+            self.device, self.enc_len)
 
     def write_prefill_paged(self, state, caches, slot, block_row, length,
                             page_size):
@@ -205,7 +306,12 @@ class Model:
         """One slot's prompt chunk: tokens (1, L); slot its batch row;
         block_row (nb,) the slot's block table; start the absolute
         position of tokens[0] → (logits (1, V*) of the chunk's last
-        token, state)."""
+        token, state). The VLM and the enc-dec prefill monolithically,
+        as in the reference."""
+        if self.cfg.family == "vlm" or self.cfg.is_encdec:
+            raise NotImplementedError(
+                "chunked prefill: vlm/enc-dec frontends prefill "
+                "monolithically")
         positions = start + torch.arange(tokens.shape[1],
                                          device=tokens.device)
         x = self._embed_tokens(params, tokens, positions)
@@ -281,10 +387,11 @@ class Model:
         return lm.reset_state_row(self.cfg, self.specs, state, slot)
 
     def state_row_bytes(self) -> int:
-        """Device bytes one slot's rows span across all layers — the MMU
-        lease granularity for paged recurrent state; 0 for attention-only
-        stacks."""
-        st = lm.init_paged_state(self.cfg, self.specs, 1, 1, 1, "meta")
+        """Device bytes one slot's rows span across all layers (recurrent
+        state, cross K/V) — the MMU lease granularity for paged state rows;
+        0 for decoder-only attention stacks."""
+        st = lm.init_paged_state(self.cfg, self.specs, 1, 1, 1, "meta",
+                                 self.enc_len)
         return sum(leaf.numel() * leaf.element_size() for leaf in
                    lm.gather_state_row(self.cfg, self.specs, st, 0))
 

@@ -32,6 +32,14 @@ Each batch slot owns a *position* and a *block table*:
   move to the host tier — and the slot resumes (refaults) once the pool
   can hold it again.
 
+* a VLM or enc-dec model takes its frontend inputs from ``extra_batch``
+  (``"patches"`` / ``"frames"``, one row per slot, sliced at admission as
+  the reference does) and prefills monolithically: chunked prefill is
+  off. A VLM slot leases and writes pages for its ``n_prefix`` image
+  rows *and* its prompt, and decodes from position ``n_prefix + plen``;
+  an enc-dec slot's cross K/V rows of ``enc_len`` encoder positions sit
+  in its state rows.
+
 Host-side sampling (monolithic mode, and the first token after the last
 prefill chunk) uses a seeded numpy RNG, draw for draw as the reference
 does. ``submit()`` returns a request id; ``future(rid)`` exposes a
@@ -115,9 +123,6 @@ class ServeEngine:
                  chunk_tokens: int = 0, share_prefix: bool = False,
                  swap: bool = False, state_paging: bool = False,
                  owner_prefix: str = ""):
-        if extra_batch:
-            raise NotImplementedError(
-                "serving: vlm/enc-dec frontends are not ported yet")
         row_bytes = model.state_row_bytes()
         if share_prefix and row_bytes > 0:
             # a warm admission maps only the prefix's KV pages and starts
@@ -135,8 +140,32 @@ class ServeEngine:
         # admission_gate(owner, n_pages) -> bool: False defers the
         # newcomer before the MMU is asked (pool-pressure hook)
         self.admission_gate = admission_gate
+        # frontend inputs, one row per slot (vlm patches, enc-dec frames)
+        self.extra_batch = {k: torch.as_tensor(np.asarray(v)).to(
+            model.device) for k, v in (extra_batch or {}).items()}
+        want = {k for k, has in (("patches", cfg.family == "vlm"),
+                                 ("frames", cfg.is_encdec)) if has}
+        if set(self.extra_batch) != want:
+            raise ValueError(
+                f"{cfg.name}: frontend inputs {sorted(want)} expected; "
+                f"got {sorted(self.extra_batch)}")
+        for k, v in self.extra_batch.items():
+            # the rows' length sizes the cross K/V rows the state pages
+            # were leased for (Model.enc_len): no other length fits
+            fe = cfg.frontend
+            if (v.dim() != 3 or v.shape[0] < batch_size
+                    or tuple(v.shape[1:]) != (fe.n_tokens, fe.d_in)):
+                raise ValueError(
+                    f"{cfg.name}: {k} must be (>={batch_size}, "
+                    f"{fe.n_tokens}, {fe.d_in}), one row per slot; got "
+                    f"{tuple(v.shape)}")
+        # rows a frontend puts before the prompt in the slot's KV (the
+        # VLM's image patches): leased, written and decoded past
+        self._n_prefix = model.n_prefix
         self.chunk_tokens = int(chunk_tokens)
-        self._chunked = self.chunk_tokens > 0
+        # vlm/enc-dec frontends need the whole prompt at once: they stay
+        # monolithic (reference engine.py:120)
+        self._chunked = self.chunk_tokens > 0 and not self.extra_batch
         # sharing and swap ride on chunked prefill: a warm admission
         # starts the chunk cursor past the shared span, and a parked
         # slot resumes through the same cursorless decode
@@ -213,9 +242,10 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def submit(self, prompt_tokens, max_new_tokens=16, temperature=0.0):
         prompt = np.asarray(prompt_tokens, np.int32)
-        if len(prompt) > self.capacity:
-            raise ValueError(f"prompt of {len(prompt)} tokens exceeds "
-                             f"KV capacity {self.capacity}")
+        if self._n_prefix + len(prompt) > self.capacity:
+            raise ValueError(f"prompt of {len(prompt)} tokens (after "
+                             f"{self._n_prefix} frontend rows) exceeds KV "
+                             f"capacity {self.capacity}")
         # one critical section: rid assignment, future registration and
         # the queue append are atomic, so FIFO order matches rid order
         with self._lock:
@@ -260,10 +290,12 @@ class ServeEngine:
                     break
                 req = self.waiting.popleft()
             plen = len(req.prompt)
+            # the slot's sequence: a VLM's image rows, then the prompt
+            seq_len = self._n_prefix + plen
             # chunked: the admission ask is one chunk's pages, later
             # chunks fault the rest of the table in incrementally
             lease_len = (min(plen, self.chunk_tokens) if self._chunked
-                         else plen)
+                         else seq_len)
             owner = f"{self.owner_prefix}req{req.rid}"
             n_pages = max(1, -(-lease_len // self.kv.page_size))
             if self.rstate is not None:
@@ -287,7 +319,7 @@ class ServeEngine:
             prompt = req.prompt if self._share else None
             try:
                 try:
-                    shared = self.kv.admit(i, owner, plen,
+                    shared = self.kv.admit(i, owner, seq_len,
                                            lease_len=lease_len,
                                            prompt=prompt)
                 except MMUError:
@@ -295,7 +327,7 @@ class ServeEngine:
                     # retry once
                     if not (self._swap and self._swap_out_victim()):
                         raise
-                    shared = self.kv.admit(i, owner, plen,
+                    shared = self.kv.admit(i, owner, seq_len,
                                            lease_len=lease_len,
                                            prompt=prompt)
             except MMUError as exc:
@@ -343,9 +375,9 @@ class ServeEngine:
                 self.positions[i] = -1
                 self._cursor[i] = shared
                 continue
-            logits, caches = self._prefill_fn(
-                params, {"tokens": self._dev(req.prompt[None])})
-            self.kv.write_prefill(caches, i, plen)
+            logits, caches = self._prefill_fn(params,
+                                              self._newcomer_batch(i, req))
+            self.kv.write_prefill(caches, i, seq_len)
             if self.obs.enabled:
                 self.obs.tracer.event(self.obs_tenant, req.rid,
                                       PHASE_PREFILL, tokens=plen)
@@ -354,8 +386,16 @@ class ServeEngine:
                 self._logits = np.zeros((self.B, logits.shape[-1]),
                                         np.float32)
             self._logits[i] = logits[0]
-            self.positions[i] = plen                  # next write position
+            self.positions[i] = seq_len               # next write position
             self.stats.prefills += 1
+
+    def _newcomer_batch(self, slot: int, req: Request) -> dict:
+        """The newcomer's prefill batch: its prompt and its slot's row of
+        each frontend input."""
+        batch = {"tokens": self._dev(req.prompt[None])}
+        for k, v in self.extra_batch.items():
+            batch[k] = v[slot:slot + 1]
+        return batch
 
     # ------------------------------------------------------------------
     # Chunked prefill: bounded prompt writes interleaved with decode

@@ -145,7 +145,7 @@ class ModelRegistry:
         if params is None:
             gen = torch.Generator(device=device)
             gen.manual_seed(seed)
-            params = model.compute_params(model.init(gen))
+            params = model.init_compute_params(gen)
         fp = weights_fingerprint(params, cfg)
         pk = hashlib.sha256(repr((arch, cfg.n_layers, cfg.d_model,
                                   cfg.vocab, "serve")).encode()) \

@@ -106,8 +106,10 @@ def test_engine_future_resolves(models):
 
 def test_unported_options_raise(models):
     jcfg, cfg, jm, jp, m, p = models
-    # prefix sharing and the swap tier are ported (see
-    # tests/test_torch_kv_hierarchy.py); the vlm/enc-dec frontends are not
-    with pytest.raises(NotImplementedError):
+    # prefix sharing and the swap tier (tests/test_torch_kv_hierarchy.py)
+    # and the vlm/enc-dec frontends (tests/test_torch_frontends.py) are
+    # ported; a frontend input the model has no frontend for is refused
+    with pytest.raises(ValueError, match="frontend"):
         ServeEngine(cfg, m, 2, 64, page_size=8, chunk_tokens=8,
-                    extra_batch={"frames": 0})
+                    extra_batch={"frames": np.zeros((2, 24, 64),
+                                                    np.float32)})

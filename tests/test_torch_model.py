@@ -178,6 +178,40 @@ def test_compute_params_keeps_numbers(pair):
     assert torch.equal(a, b)
 
 
+def _named_leaves(tree, name=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _named_leaves(v, k)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _named_leaves(v, name)]
+    return [(name, tree)]
+
+
+@pytest.mark.parametrize("arch", [
+    "qwen1.5-0.5b", "recurrentgemma-2b", "rwkv6-7b", "internlm2-1.8b",
+    "phi3-mini-3.8b", "starcoder2-15b", "mixtral-8x7b", "kimi-k2-1t-a32b",
+    "internvl2-2b", "whisper-medium"])
+def test_init_makes_compute_params_dtypes(arch):
+    """``Model.init_compute_params`` casts each layer as it is made and
+    gives ``compute_params(init(...))`` bit for bit: product weights in
+    the bf16 compute dtype, the leaves read in fp32 as they were made."""
+    from repro_torch.models.recurrent import FP32_PARAMS
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              compute_dtype="bfloat16")
+    m = Model(cfg, device="cpu")
+    made = _named_leaves(m.init_compute_params(
+        torch.Generator().manual_seed(0)))
+    want = _named_leaves(m.compute_params(
+        m.init(torch.Generator().manual_seed(0))))
+    assert [n for n, _ in made] == [n for n, _ in want]
+    for (name, a), (_, b) in zip(made, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    keep = ("scale", "bias", "router") + FP32_PARAMS
+    for name, leaf in made:
+        dts = ({torch.float32, getattr(torch, cfg.param_dtype)}
+               if name in keep else {torch.bfloat16})
+        assert leaf.dtype in dts, (name, leaf.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Ring caches and one-token decode (the VMM's programs), against the
 # reference's Pallas path (``use_pallas=True``, interpret mode) in fp32

@@ -168,7 +168,19 @@ def test_unported_paths_raise():
     m = Model(cfg, device="cpu")                 # no rope, no attention: ok
     caches = m.init_cache(1, 8)                  # ring decode is ported
     assert "k" not in caches and len(caches["rows"]) == cfg.n_layers
+    # attention with absolute positions is ported (whisper's decoder,
+    # tests/test_torch_frontends.py): without rope the attention layers
+    # see sinusoidal positions in the embeddings and no rotation
     qcfg = dataclasses.replace(get_config("qwen1.5-0.5b", reduced=True),
-                               use_rope=False)
-    with pytest.raises(NotImplementedError):
-        Model(qcfg, device="cpu")                # absolute positions + attn
+                               use_rope=False, compute_dtype="float32")
+    qm = Model(qcfg, device="cpu")
+    qp = qm.init(torch.Generator().manual_seed(0))
+    toks = {"tokens": torch.arange(9)[None]}
+    lg, qc = qm.prefill(qp, toks)
+    roped, _ = Model(dataclasses.replace(qcfg, use_rope=True),
+                     device="cpu").prefill(qp, toks)
+    assert bool(torch.isfinite(lg).all()) and not torch.equal(lg, roped)
+    # what no configuration uses stays refused
+    for field, value in (("logit_softcap", 30.0), ("tie_embeddings", True)):
+        with pytest.raises(NotImplementedError):
+            Model(dataclasses.replace(qcfg, **{field: value}), device="cpu")
