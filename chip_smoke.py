@@ -22,7 +22,8 @@ Phases, each printing its lines and raising on any failure:
    split and of the NaN rule (NaN at 0, at a thread's and a CTA's first
    column, two NaNs, all NaN, all -inf, +inf against NaN, -0.0 before
    +0.0, T = 0 with infinite noise); flash at its
-   q-tile edges (S = 1, 63, 64, 65) and at B=4 S=4096, and at
+   q-tile edges (S = 1, 63, 64, 65), at B=4 S=4096 and at the train
+   phase's B=4 S=2048, and at
    recurrentgemma's hd=256, Hq/Hkv 10/1 with windows, and at the head
    dims of phi3-mini (hd 96, 32/32) and kimi-k2 (hd 112, 64/8), bf16 and
    fp32, S = 1, 65, 130, causal and windowed; flash and fused paged
@@ -107,9 +108,31 @@ Phases, each printing its lines and raising on any failure:
    (token, k) expert pick (a pick may differ only at a near tie, < 1e-5,
    and is reported); TTFT, tok/s and the step p50 beside the card's name
    and power limit;
-12. apps — the paper's three apps (``launch/apps.py``) native and through
+12. train — flash under autograd (the kernel forward inside its
+   ``autograd.Function``, the plain backward) against autograd through
+   the plain version at qwen's 16/16 hd 64 (B=2 S=512), hd 128 48/4 and
+   hd 256 10/1 with window 2048 at S=2500, bf16 and fp32: the forward
+   within two ulps / 2e-5; dq dk dv within 3e-2 / 2e-5, a check of the
+   ``Function``'s wiring (saved inputs, window, one forward launch), not
+   of a kernel, since its backward is the plain version's own; the
+   recurrent families'
+   loss refused on the card (their kernels have no backward); qwen at
+   full width cut to 2 layers, fp32, B=2 S=256: one train step on the
+   card and on the CPU (plain, 2 micro-steps, 2 micro-steps with bf16
+   accumulation), loss and grad_norm within 1e-4 relative, every
+   parameter leaf with a finite nonzero gradient on the card; then
+   ``qwen1.5-0.5b`` at full width and depth (``remat="full"``, bf16), 12
+   steps of B=4 S=2048 from ``pipeline_for(seed=0)``: finite losses, the
+   last below the first, step 0's batch easier after the run, 48 flash
+   launches a step; step p50, tokens/s, peak memory and one profiled step
+   (busy share, the share of flash's recomputed backward); the step-5
+   checkpoint (``CheckpointManager``, async) restored into fresh trees and
+   run to step 10, and the 12 steps through a VMM tenant's ``train``
+   program (``hybrid``), both within 1e-5 relative of the native losses
+   (reported bitwise too), with the virtualized / native step ratio;
+13. apps — the paper's three apps (``launch/apps.py``) native and through
    three bound tenants, at the reference size and at the card's;
-13. times — per mode TTFT, throughput and the median engine step; per
+14. times — per mode TTFT, throughput and the median engine step; per
    kernel its device time (torch.profiler/CUPTI; the per-call CUDA-event
    time is printed beside it), its plain version's, one PyTorch call
    computing the same function (``library_ms``, a yardstick the port
@@ -118,7 +141,8 @@ Phases, each printing its lines and raising on any failure:
    bound, with its launches on the paths; the sampler at the three served
    vocabularies; the scan and the WKV also at one chunked-prefill call
    (S=32); flash also at
-   B=4 S=4096 and at hd 256 S=2500 with window 2048; fused decode also
+   B=4 S=4096, at the train phase's B=4 S=2048 and at hd 256 S=2500 with
+   window 2048; fused decode also
    at a long
    context (nb=160, lengths up to 2560) at hd 64 16/16 and hd 256 10/1
    with window 2048.
@@ -577,9 +601,11 @@ def check_kernels(device, errs):
                       f"{dn}", _max_err(got, want), TOL[dn])
         if dt == bf16:
             errs["flash_attention"] = max(errs.get("flash_attention", 0), err)
-    # the tensor-core instance's q-tile edges (64 rows a CTA) and the VMM
-    # prefill program's shape, each element within two bf16 ulps
-    for B, S in ((1, 1), (1, 63), (1, 64), (1, 65), (4, 4096)):
+    # the tensor-core instance's q-tile edges (64 rows a CTA), the VMM
+    # prefill program's shape and the train phase's (B=4 S=2048, every
+    # layer's forward there), each element within two bf16 ulps
+    for B, S in ((1, 1), (1, 63), (1, 64), (1, 65), (4, 4096),
+                 (TRAIN_B, TRAIN_S)):
         q, k, v = flash_inputs(S, 16, 16, bf16, device, seed=S, B=B)
         err = _expect_close("flash_attention",
                             f"B={B} S={S} Hq=Hkv=16 hd=64 causal bfloat16",
@@ -2448,6 +2474,378 @@ def families_phase(device, launches, smi):
 
 
 # ---------------------------------------------------------------------------
+# train: the port's training path (flash's gradient, card against CPU,
+# full width and depth, through a VMM tenant, resume)
+# ---------------------------------------------------------------------------
+
+#: flash's gradient on the card, (B, S, Hq, Hkv, hd, window): qwen's heads
+#: at the train phase's width, starcoder2's hd-128 GQA 48/4 and
+#: recurrentgemma's hd 256 10/1 with its window of 2048 at S = 2500
+FLASH_GRAD_SHAPES = ((2, 512, 16, 16, 64, 0), (1, 512, 48, 4, 128, 0),
+                     (1, 2500, 10, 1, 256, 2048))
+GRAD_TOL = {"bfloat16": 3e-2, "float32": 2e-5}
+TRAIN_ARCH = "qwen1.5-0.5b"
+#: the full-depth run: B x S tokens a step, steps from pipeline_for(seed=0);
+#: a checkpoint at RESUME_AT, restored and run again to RESUME_TO
+TRAIN_B, TRAIN_S, TRAIN_STEPS, RESUME_AT, RESUME_TO = 4, 2048, 12, 5, 10
+#: card against CPU: full width cut to 2 layers, fp32, B=2 S=256; loss and
+#: grad_norm within 1e-4 relative; resumed and virtualized losses within
+#: 1e-5 relative of the uninterrupted native run
+TRAIN_REF_DEPTH, TRAIN_REF_B, TRAIN_REF_S, TRAIN_REF_RTOL = 2, 2, 256, 1e-4
+RESUME_RTOL = 1e-5
+PATH_KERNELS["train"] = ("flash_attention",)
+PATH_KERNELS["virtualized-train"] = ("flash_attention",)
+
+
+def check_flash_grad(device, shapes=FLASH_GRAD_SHAPES):
+    """The flash ``autograd.Function`` (kernel forward, recomputed plain
+    backward) against autograd through the plain version, on the same
+    inputs and upstream gradient: the forward (bf16 within two ulps, fp32
+    at 2e-5) is a check of the kernel; dq, dk, dv (3e-2 bf16, 2e-5 fp32,
+    each present and finite) are a check of the ``Function``'s wiring
+    only — the saved q, k, v, the causal flag and window reaching the
+    recompute, one launch a forward — since the backward is autograd of
+    the same plain formula on the same inputs."""
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    for (B, S, Hq, Hkv, hd, window), dt in itertools.product(
+            shapes, (torch.bfloat16, torch.float32)):
+        dn = str(dt).replace("torch.", "")
+        q, k, v = flash_inputs(S, Hq, Hkv, dt, device, seed=S + hd, hd=hd,
+                               B=B)
+        g = torch.Generator(device=device).manual_seed(S + 1)
+        up = torch.randn(q.shape, generator=g, device=device).to(dt)
+        what = f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} window={window} {dn}"
+        res = {}
+        for name, fn in (("op", flash_attention_op),
+                         ("plain", flash_attention_ref)):
+            qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            before = common.LAUNCHES["flash_attention"]
+            out = fn(*qkv, causal=True, window=window)
+            out.backward(up)
+            res[name] = (out.detach(), [t.grad for t in qkv],
+                         common.LAUNCHES["flash_attention"] - before)
+        (out, grads, n), (want, wgrads, _) = res["op"], res["plain"]
+        if device.type == "cuda" and n != 1:
+            raise AssertionError(f"flash grad {what}: {n} kernel launches "
+                                 "in the forward, expected 1")
+        if dt == torch.float32:
+            _expect("flash_attention", f"forward under grad {what}",
+                    _max_err(out, want), TOL[dn])
+        else:
+            _expect_close("flash_attention", f"forward under grad {what}",
+                          out, want, BF16_ULP_ATOL, BF16_ULP_RTOL)
+        for gname, got, ref in zip(("dq", "dk", "dv"), grads, wgrads):
+            if got is None or not bool(torch.isfinite(got.float()).all()):
+                raise AssertionError(f"flash grad {what}: {gname} missing "
+                                     "or not finite")
+            _expect("flash_attention", f"{gname} {what}",
+                    _max_err(got, ref), GRAD_TOL[dn])
+        del q, k, v, up, res, out, grads, want, wgrads
+
+
+def check_train_refusals(device):
+    """A loss through a kernel without a backward raises on the card
+    (the recurrent families: their scan and WKV kernels refuse a
+    gradient) instead of training with a detached output."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch import optim
+    for arch, _, _ in RECURRENT_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        model = Model(cfg, device)
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        toks = torch.zeros((1, 8), dtype=torch.int32, device=device)
+        batch = {"tokens": toks, "labels": toks,
+                 "mask": torch.ones((1, 8), device=device)}
+        try:
+            optim.loss_and_grads(model, params, batch)
+        except RuntimeError as exc:
+            if "no backward" not in str(exc):
+                raise
+            log(f"[train] {arch}: a loss on the card refuses: {exc}")
+            continue
+        raise AssertionError(f"{arch}: a loss on the card did not refuse")
+
+
+def train_reference_phase(device, cfg=None, B=TRAIN_REF_B, S=TRAIN_REF_S):
+    """``cfg`` (default: qwen at full width cut to 2 layers, fp32
+    compute): one train step on the card and the same on the CPU from the same params,
+    optimizer state and batch — plain, with ``micro_steps=2`` and with
+    ``micro_steps=2, grad_compress=True``: loss and grad_norm within
+    1e-4 relative; every parameter leaf gets a finite, nonzero gradient
+    on the card."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.bridge import batch_from_numpy
+    from repro_torch.checkpointing.checkpoint import (flatten_with_path,
+                                                      tree_map)
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import pipeline_for
+    from repro_torch.launch.train import opt_config
+    from repro_torch.models import Model
+    cpu = torch.device("cpu")
+    cfg = cfg or family_cfg(TRAIN_ARCH, TRAIN_REF_DEPTH,
+                            compute_dtype="float32")
+    params = {cpu: Model(cfg, cpu).init(torch.Generator().manual_seed(0))}
+    params[device] = tree_map(lambda t: t.to(device), params[cpu])
+    batch = pipeline_for(cfg, ShapeCell("train-ref", S, B, "train"),
+                         seed=0).batch(0)
+    t0 = time.perf_counter()
+    _, _, grads = optim.loss_and_grads(Model(cfg, device), params[device],
+                                       batch_from_numpy(batch, device))
+    flat = flatten_with_path(grads)
+    bad = [p for p, g in flat if g is None
+           or not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    log(f"[train-ref] {cfg.name} at d_model {cfg.d_model}, {cfg.n_layers} "
+        f"layers, {cfg.compute_dtype}, B={B} S={S}: {len(flat)} parameter "
+        f"leaves, {len(flat) - len(bad)} with "
+        f"a finite nonzero gradient on {device.type} (wq/wk/wv and their "
+        "biases among them)")
+    if bad:
+        raise AssertionError(f"train-ref: leaves without a finite nonzero "
+                             f"gradient: {bad}")
+    del grads, flat
+    for ms, gc in ((1, False), (2, False), (2, True)):
+        opt = opt_config(cfg, TRAIN_STEPS, ms, gc)
+        res = {}
+        for dev in (device, cpu):
+            step = optim.make_train_step(Model(cfg, dev), opt)
+            _, _, m = step(params[dev], optim.init(opt, params[dev]),
+                           batch_from_numpy(batch, dev))
+            res[dev.type] = (float(m["loss"]), float(m["grad_norm"]))
+        (l_dev, n_dev), (l_cpu, n_cpu) = res[device.type], res["cpu"]
+        rel = max(abs(l_dev - l_cpu) / abs(l_cpu),
+                  abs(n_dev - n_cpu) / abs(n_cpu))
+        ok = rel <= TRAIN_REF_RTOL
+        log(f"[train-ref] micro_steps={ms} grad_compress={gc}: loss "
+            f"{l_dev!r} ({device.type}) vs {l_cpu!r} (cpu), grad_norm "
+            f"{n_dev!r} vs {n_cpu!r}: rel {rel:.3g} tol {TRAIN_REF_RTOL:g} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("train-ref: card and CPU disagree")
+    log(f"[train-ref] took {time.perf_counter() - t0:.1f}s")
+
+
+def run_steps(run, params, state, batches, first, device, mgr=None):
+    """Train steps ``first..`` over ``batches`` (numpy) → (params, state,
+    losses, host ms a step, flash launches a step); ``mgr`` saves after
+    step RESUME_AT (its host copy is not in the step's time)."""
+    from repro_torch.bridge import batch_from_numpy
+    from repro_torch.kernels import common
+    losses, ms, flash = [], [], []
+    for step in range(first, len(batches)):
+        batch = batch_from_numpy(batches[step], device)
+        sync(device)
+        before = common.LAUNCHES["flash_attention"]
+        t = time.perf_counter()
+        params, state, m = run(params, state, batch)
+        losses.append(float(m["loss"]))             # waits for the step
+        ms.append(1e3 * (time.perf_counter() - t))
+        flash.append(common.LAUNCHES["flash_attention"] - before)
+        if mgr is not None and step == RESUME_AT:
+            mgr.save(step, {"params": params, "opt": state})
+    return params, state, losses, ms, flash
+
+
+def profile_train_step(run, params, state, batch, smi):
+    """One train step under torch.profiler: the device's busy share of
+    the step, and the shares of its device time in flash's backward (the
+    plain attention recomputed and differentiated, the autograd node
+    ``_FlashBackward``) and in the flash kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sync(batch["tokens"].device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = run(params, state, batch)
+        float(out[2]["loss"])
+        wall = 1e3 * (time.perf_counter() - t)
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    bwd = 0.0
+    for e in prof.key_averages():
+        if "_FlashBackward" in e.key:
+            dev = getattr(e, "device_time_total", None)
+            bwd = max(bwd, (e.cuda_time_total if dev is None else dev) / 1e3)
+    fwd = sum(r[0] for r in rows if "flash" in r[2].lower()) / 1e3
+    log(f"[train-profile] {smi}: one step {wall:.1f} ms on the host clock, "
+        f"{busy:.1f} ms of device time (busy {100 * busy / wall:.1f}%, "
+        f"idle {100 * (1 - busy / wall):.1f}%); flash's backward (plain "
+        f"attention recomputed and differentiated) {bwd:.1f} ms = "
+        f"{100 * bwd / max(busy, 1e-9):.1f}% of the device time; the flash "
+        f"kernel (forward and remat recompute) {fwd:.1f} ms = "
+        f"{100 * fwd / max(busy, 1e-9):.1f}%")
+    for t_us, n, name in rows[:8]:
+        log(f"[train-profile]   {t_us / 1e3:9.2f} ms {n:5d}x {name[:90]}")
+    del out
+
+
+def train_phase(device, launches, smi, reduced=False, B=TRAIN_B, S=TRAIN_S,
+                steps=TRAIN_STEPS):
+    """``qwen1.5-0.5b`` at full width and depth (its own ``remat="full"``,
+    bf16 compute) trains ``steps`` steps of B x S tokens from
+    ``pipeline_for(cfg, cell, seed=0)``: the loss finite at every step,
+    lower at the last than at the first, and lower on step 0's batch
+    after the run than at step 0; 2 flash launches a layer a step
+    (forward and remat recompute); step p50, tokens/s, peak memory and
+    one profiled step. A checkpoint at step 5 (``CheckpointManager``,
+    async) is restored into fresh trees and run to step 10; the same
+    steps run through a VMM tenant's ``train`` program under ``hybrid``.
+    Resumed and virtualized losses agree with the native ones within
+    1e-5 relative (reported bitwise too)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import optim
+    from repro_torch.bridge import batch_from_numpy
+    from repro_torch.checkpointing import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core import ProgramRequest
+    from repro_torch.data import pipeline_for
+    from repro_torch.kernels import common
+    from repro_torch.launch.serve import virtual_server
+    from repro_torch.launch.train import opt_config
+    from repro_torch.models import Model
+    from repro_torch.parallel import abstract_params, build_train
+    cfg = get_config(TRAIN_ARCH, reduced=reduced)
+    cell = ShapeCell("train", S, B, "train")
+    model = Model(cfg, device)
+    opt = opt_config(cfg, steps)
+    pipe = pipeline_for(cfg, cell, seed=0)
+    batches = [pipe.batch(s) for s in range(steps)]
+
+    def fresh():
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        return params, optim.init(opt, params)
+
+    run, _ = build_train(cfg, device, cell, opt)
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_")
+    mgr = CheckpointManager(ckpt, keep_n=1)
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} hd {cfg.d_head}, vocab "
+        f"{cfg.vocab} (padded {cfg.padded_vocab}), remat "
+        f"{cfg.sharding.remat!r}, params {cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}; B={B} S={S} ({B * S} tokens a step), "
+        f"{steps} steps; {shutil.disk_usage(ckpt).free / 2 ** 30:.0f} GiB "
+        "free for the checkpoint")
+    params, state = fresh()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    common.reset_launches()
+    params, state, losses, ms, flash = run_steps(run, params, state,
+                                                  batches, 0, device, mgr)
+    counts = dict(common.LAUNCHES)
+    mgr.wait()
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 \
+        if device.type == "cuda" else float("nan")
+    p50 = statistics.median(ms)
+    log(f"[train] losses {[round(x, 4) for x in losses]}; launches={counts}")
+    log(f"[time:train] {smi}: step p50 {p50:.1f} ms, "
+        f"{B * S / p50 * 1e3:.0f} tokens/s, peak memory {peak:.2f} GiB, "
+        f"flash launches a step {flash}; each step's ms (the async save "
+        f"after step {RESUME_AT} writes on a host thread meanwhile) "
+        f"{[round(t, 1) for t in ms]}")
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise AssertionError("train: a loss is not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall ({losses[0]} -> "
+                             f"{losses[-1]})")
+    if device.type == "cuda" and set(flash) != {2 * cfg.n_layers}:
+        raise AssertionError(f"train: flash launches a step {flash}, "
+                             f"expected {2 * cfg.n_layers}")
+    count_path("train", counts, launches)
+    # most tokens of a new batch were never seen (V = 152064), so the
+    # step losses fall slowly; step 0's batch, seen once, shows the
+    # gradient at work
+    with torch.no_grad():
+        again = float(model.loss(params, batch_from_numpy(batches[0],
+                                                          device))[0])
+    log(f"[train] step 0's batch after {steps} steps: loss {again:.4f} "
+        f"(at step 0: {losses[0]:.4f})")
+    if not again < losses[0]:
+        raise AssertionError("train: step 0's batch did not get easier")
+    profile_train_step(run, params, state,
+                       batch_from_numpy(pipe.batch(steps), device), smi)
+    del params, state
+
+    # resume: the step-5 checkpoint into fresh trees, steps 6..10 again
+    t = time.perf_counter()
+    template = {"params": abstract_params(model)}
+    template["opt"] = optim.init(opt, template["params"])
+    saved, tree, _ = mgr.restore_latest(template, device=device)
+    mgr.close()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    load_s = time.perf_counter() - t
+    _, _, resumed, _, _ = run_steps(run, tree["params"], tree["opt"],
+                                    batches[:RESUME_TO + 1], saved + 1,
+                                    device)
+    del tree
+    _agree("resume", f"steps {saved + 1}..{RESUME_TO} after restoring the "
+           f"step-{saved} checkpoint ({load_s:.1f}s to restore)", resumed,
+           losses[saved + 1:RESUME_TO + 1])
+
+    # the same steps through a VMM tenant's train program (hybrid)
+    vmm, tenant = virtual_server(device, "hybrid")
+    tenant.device.reprogram(ProgramRequest(
+        arch=cfg.name, kind="train", seq_len=S, global_batch=B,
+        reduced=reduced, opt_flags=tuple(dataclasses.asdict(opt).items())))
+    params, state = fresh()
+    common.reset_launches()
+    _, _, vlosses, vms, _ = run_steps(tenant.device.run, params, state,
+                                      batches, 0, device)
+    vcounts = dict(common.LAUNCHES)
+    del params, state
+    st = vmm.stats()
+    vmm.shutdown()
+    if st["scheduler"]["tenants"]["server"]["failed"]:
+        raise AssertionError("virtualized train: a failed run")
+    count_path("virtualized-train", vcounts, launches)
+    _agree("virtualized-train", "through the tenant's train program "
+           "(hybrid)", vlosses, losses)
+    vp50 = statistics.median(vms)
+    log(f"[time:virtualized-train] {smi}: step p50 {vp50:.1f} ms (native "
+        f"{p50:.1f} ms, ratio {vp50 / p50:.4f}); each step's ms "
+        f"{[round(t, 1) for t in vms]}; launches={vcounts}")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"step_p50_ms": p50, "virt_step_p50_ms": vp50,
+            "tokens_s": B * S / p50 * 1e3, "peak_gib": peak}
+
+
+def _agree(name, what, got, want):
+    """Losses ``got`` against the native run's ``want``: within
+    RESUME_RTOL relative each (the CUDA backward's sums may be reordered
+    between runs), and reported as bitwise equal or not."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    same = list(got) == list(want)
+    ok = len(got) == len(want) and rel <= RESUME_RTOL
+    log(f"[{name}] {what}: {len(got)} losses, max rel diff {rel:.3g} (tol "
+        f"{RESUME_RTOL:g}), bitwise equal: {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: losses disagree with the native run")
+
+
+def train_phases(device, launches, smi):
+    """Phase 12: flash's gradient, the card against the CPU, the
+    recurrent families' refusal, then the full-depth run with its resume
+    and VMM checks."""
+    t0 = time.perf_counter()
+    check_flash_grad(device)
+    check_train_refusals(device)
+    train_reference_phase(device)
+    r = train_phase(device, launches, smi)
+    log(f"[train] phase took {time.perf_counter() - t0:.1f}s")
+    return r
+
+
+# ---------------------------------------------------------------------------
 # phase 6: kernel times at the serving path's shapes
 # ---------------------------------------------------------------------------
 
@@ -2489,6 +2887,21 @@ def time_kernels(device, launches):
         "plain_ms": timed(lambda: flash_attention_ref(q, k, v), 2, 1),
         "library_ms": timed(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), 10, 2),
+        **bnd}
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    # the train phase's shape: B=4, S=2048, qwen's 16/16 heads, causal
+    B, S = TRAIN_B, TRAIN_S
+    q, k, v = flash_inputs(S, H, H, bf16, device, seed=6, B=B)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = S * (S + 1) // 2
+    bnd = bound(4 * B * S * H * hd * 2, B * H * pairs * 4 * hd, BF16_FLOPS)
+    out["flash_attention@B4S2048"] = {
+        "shape": f"B={B} S={S} Hq=Hkv={H} hd={hd} bf16 causal (train)",
+        "ms": timed(lambda: flash_attention_op(q, k, v), 20, 2),
+        "plain_ms": timed(lambda: flash_attention_ref(q, k, v), 4, 1),
+        "library_ms": timed(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 20, 2),
         **bnd}
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
@@ -2927,6 +3340,8 @@ def main():
     phase_done("mux")
     families_phase(device, launches, smi)
     phase_done("families")
+    train = train_phases(device, launches, smi)
+    phase_done("train")
     apps_phase(device, launches)
     phase_done("apps")
 
@@ -2969,6 +3384,11 @@ def main():
         log(f"[time:{short}-virtualized-chunked] {r['tok_s']:.1f} tok/s "
             f"over the run; engine step p50 {r['step_p50_ms']:.3f} ms "
             f"(native {nat:.3f} ms, ratio {r['step_p50_ms'] / nat:.3f})")
+    log(f"[time:train] {smi}: qwen1.5-0.5b, 24 layers, B={TRAIN_B} "
+        f"S={TRAIN_S}: step p50 {train['step_p50_ms']:.1f} ms, "
+        f"{train['tokens_s']:.0f} tokens/s, peak {train['peak_gib']:.2f} "
+        f"GiB; through the VMM {train['virt_step_p50_ms']:.1f} ms (ratio "
+        f"{train['virt_step_p50_ms'] / train['step_p50_ms']:.4f})")
     for short, r in served_b4.items():
         micro = times[f"{r['kernel']}@B4S4096"]["ms"] \
             if f"{r['kernel']}@B4S4096" in times else None

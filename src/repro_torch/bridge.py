@@ -224,3 +224,29 @@ def state_rows_to_numpy(state, cfg):
         segs[si].append(_to_numpy(_stack(*per_layer) if scan
                                   else per_layer[0]))
     return segs
+
+
+def opt_state_from_jax(state, device="cpu"):
+    """Reference AdamW state ``{"m", "v", "step"}`` (``repro.optim.init``
+    or a step's output, numpy leaves) → the port's: ``m`` and ``v`` in
+    the port's parameter layout, ``step`` a 0-d int32 tensor."""
+    return {"m": params_from_jax(state["m"], device),
+            "v": params_from_jax(state["v"], device),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def opt_state_to_numpy(state, cfg=None):
+    """Inverse of :func:`opt_state_from_jax`: the port's AdamW state →
+    the reference's layout with numpy leaves (``step`` int32)."""
+    return {"m": params_to_numpy(state["m"], cfg),
+            "v": params_to_numpy(state["v"], cfg),
+            "step": np.asarray(int(state["step"]), dtype=np.int32)}
+
+
+def batch_from_numpy(batch, device="cpu"):
+    """A pipeline batch (numpy, as ``data.pipeline_for`` and the
+    reference's make them) → tensors on ``device``, dtypes kept (int32
+    tokens and labels, fp32 mask, patches and frames)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}

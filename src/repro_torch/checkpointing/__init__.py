@@ -1,4 +1,5 @@
 """Checkpoints of tensor trees, on the reference's on-disk layout."""
-from repro_torch.checkpointing.checkpoint import latest, restore, save
+from repro_torch.checkpointing.checkpoint import (CheckpointManager, latest,
+                                                  restore, save)
 
-__all__ = ["latest", "restore", "save"]
+__all__ = ["CheckpointManager", "latest", "restore", "save"]

@@ -16,6 +16,9 @@ as the reference stores them, and rebuilt with
 
 Restore can target another device than the one that saved (live
 migration): leaves are read on the host and moved to ``device``.
+:class:`CheckpointManager` adds the save interval, ``keep_n`` retention
+and async saves (the host copy on the caller's thread, the file I/O on
+one worker thread), as the reference's does.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import json
 import os
 import re
 import shutil
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -46,6 +51,31 @@ def flatten_with_path(tree, prefix=()):
             out += flatten_with_path(v, prefix + (i,))
         return out
     return [(prefix, tree)]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the like-structured
+    ``rest``; dicts, lists and tuples keep their form."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def unflatten(tree, leaves, prefix=()):
+    """``tree``'s structure with the leaf at each path taken from
+    ``leaves`` ({path: leaf}, paths as :func:`flatten_with_path` gives
+    them)."""
+    if isinstance(tree, dict):
+        return {k: unflatten(v, leaves, prefix + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(unflatten(v, leaves, prefix + (i,))
+                          for i, v in enumerate(tree))
+    return leaves[prefix]
 
 
 def _leaf_key(path) -> str:
@@ -126,18 +156,7 @@ def restore(ckpt_dir: str, template=None, device=None):
             raise ValueError(f"shape mismatch for {key}: "
                              f"{tuple(arr.shape)} vs {tuple(t.shape)}")
         leaves[path] = arr.to(dtype=t.dtype, device=dev)
-    return manifest["step"], _rebuild(template, leaves), manifest["meta"]
-
-
-def _rebuild(tree, leaves, prefix=()):
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, leaves, prefix + (k,))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        out = [_rebuild(v, leaves, prefix + (i,))
-               for i, v in enumerate(tree)]
-        return type(tree)(out)
-    return leaves[prefix]
+    return manifest["step"], unflatten(template, leaves), manifest["meta"]
 
 
 def latest(root: str) -> Optional[str]:
@@ -150,3 +169,80 @@ def latest(root: str) -> Optional[str]:
                 os.path.exists(os.path.join(d, _COMMIT))):
             best = d
     return best
+
+
+def _host_copy(leaf):
+    """A host copy of a tensor leaf (a copy also of a CPU tensor: the
+    caller may overwrite its tensors while the save runs)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True)
+    return leaf
+
+
+class CheckpointManager:  # concurrency: caller thread + one I/O worker
+    # the caller's thread saves, waits and restores; the worker writes
+    # and collects; _pending (the last save's future) crosses under _lock
+    """Interval + retention + async-save management (reference
+    ``checkpoint.py:129-179``): :meth:`should_save` every
+    ``save_interval`` steps; :meth:`save` takes the host copy on the
+    caller's thread (a consistent snapshot) and leaves the file I/O and
+    the removal of all but the newest ``keep_n`` checkpoints to a single
+    worker; :meth:`wait` returns when the last save is on disk (and
+    raises its error); :meth:`restore_latest` reads the newest committed
+    one. :meth:`close` waits and stops the worker."""
+
+    def __init__(self, root: str, save_interval: int = 100,
+                 keep_n: int = 3, async_save: bool = True):
+        self.root = root
+        self.save_interval = save_interval
+        self.keep_n = keep_n
+        self.async_save = async_save
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._pending: Optional[Future] = None      # guarded-by: _lock
+        self._lock = threading.Lock()
+        os.makedirs(root, exist_ok=True)
+
+    def should_save(self, step: int) -> bool:
+        return step > 0 and step % self.save_interval == 0
+
+    def save(self, step: int, tree, meta=None, block=False):
+        """→ the save's Future (async) or its directory (``block`` or
+        ``async_save=False``)."""
+        host_tree = tree_map(_host_copy, tree)
+
+        def _do():
+            path = save(self.root, step, host_tree, meta)
+            self._gc()
+            return path
+
+        if self.async_save and not block:
+            self.wait()
+            fut = self._pool.submit(_do)
+            with self._lock:
+                self._pending = fut
+            return fut
+        return _do()
+
+    def wait(self):
+        with self._lock:
+            pending = self._pending
+        if pending is not None:
+            pending.result()
+
+    def restore_latest(self, template=None, device=None):
+        """→ (step, tree, meta) of the newest committed checkpoint, or
+        None when there is none."""
+        d = latest(self.root)
+        if d is None:
+            return None
+        return restore(d, template, device)
+
+    def close(self):
+        self.wait()
+        self._pool.shutdown(wait=True)
+
+    def _gc(self):
+        names = [n for n in sorted(os.listdir(self.root))
+                 if n.startswith("step_") and not n.endswith(".tmp")]
+        for n in names[:-self.keep_n]:
+            shutil.rmtree(os.path.join(self.root, n), ignore_errors=True)

@@ -40,7 +40,10 @@ class LegalityError(ReconfigError):
 
 @dataclass
 class ProgramRequest:
-    """What a tenant asks to have 'flashed': a named step program."""
+    """What a tenant asks to have 'flashed': a named step program. A
+    train program's ``opt_flags`` are ``(field, value)`` pairs of
+    ``optim.OptConfig`` over its defaults (part of the program key, so
+    two optimizer settings are two programs)."""
     arch: str
     kind: str                    # 'train' | 'prefill' | 'decode'
     seq_len: int
@@ -170,8 +173,12 @@ class CompileService:
         cell = ShapeCell("custom", req.seq_len, req.global_batch,
                          req.kind)
         device = vslice.device
+        kw = {}
+        if req.kind == "train" and req.opt_flags:
+            from repro_torch.optim import OptConfig
+            kw["opt_cfg"] = OptConfig(**dict(req.opt_flags))
         t0 = time.perf_counter()
-        step, abstract_args = self._build(cfg, device, cell)
+        step, abstract_args = self._build(cfg, device, cell, **kw)
         if getattr(device, "type", None) == "cuda":
             from repro_torch.kernels import common
             for name in step_kernels(req.kind, cfg):

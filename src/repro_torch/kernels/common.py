@@ -234,6 +234,23 @@ def on_cpu(*tensors) -> bool:
     return False
 
 
+def refuse_grad(name: str, device, *tensors):
+    """Raise when a kernel without a backward would run on a CUDA
+    ``device`` under grad mode with an input that requires a gradient.
+    The kernels fill their outputs through ``ctypes``, so such an output
+    carries no ``grad_fn``: the gradient would stop there without an
+    error. The plain versions on the CPU are differentiable, so this
+    only guards the kernel path (flash attention has a backward and
+    never calls it)."""
+    import torch
+    if (torch.device(device).type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors
+                    if isinstance(t, torch.Tensor))):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward in the port; call it "
+            "under torch.no_grad() or on inputs that need no gradient")
+
+
 def check_contiguous(**tensors):
     for name, t in tensors.items():
         require(t.is_contiguous(), f"{name} must be contiguous")

@@ -119,6 +119,7 @@ def decode_attention_op(q, k_cache, v_cache, pos, *, window=0,
     cpu = common.on_cpu(q, k_cache, v_cache, *([pos] if on_dev else []))
     if cpu:
         return decode_attention_ref(q, k_cache, v_cache, pos, window=window)
+    common.refuse_grad(RING, q.device, q, k_cache, v_cache)
     _, C, Hkv, _ = k_cache.shape
     _check_kernel_shape(hd, Hq, Hkv)
     common.check_contiguous(q=q, k_cache=k_cache, v_cache=v_cache)
@@ -163,6 +164,7 @@ def _paged_decode_op(q, k_pages, v_pages, lengths, block_tables, window):
     if common.on_cpu(q, k_pages, v_pages, lengths, block_tables):
         return paged_decode_attention_ref(q, k_pages, v_pages, lengths,
                                           block_tables, window=window)
+    common.refuse_grad(PAGED, q.device, q, k_pages, v_pages)
     _check_paged_kernel(q, Hkv, lengths, block_tables)
     common.check_contiguous(q=q, k_pages=k_pages, v_pages=v_pages,
                             lengths=lengths, block_tables=block_tables)
@@ -202,6 +204,7 @@ def fused_decode_step_op(q, k_new, v_new, k_pages, v_pages, lengths,
                      block_tables):
         return fused_paged_decode_ref(q, k_new, v_new, k_pages, v_pages,
                                       lengths, block_tables, window=window)
+    common.refuse_grad(DECODE, q.device, q, k_new, v_new, k_pages, v_pages)
     _check_paged_kernel(q, Hkv, lengths, block_tables)
     common.check_contiguous(q=q, k_new=k_new, v_new=v_new, k_pages=k_pages,
                             v_pages=v_pages, lengths=lengths,
@@ -240,6 +243,7 @@ def sample_tokens_op(logits, temps, noise):
             and temps.shape == logits.shape[:1], "bad sampler shapes")
     if common.on_cpu(logits, temps, noise):
         return sample_tokens_ref(logits, temps, noise)
+    common.refuse_grad(SAMPLE, logits.device, logits, temps, noise)
     logits = logits.float().contiguous()
     noise = noise.float().contiguous()
     temps = temps.float().contiguous()

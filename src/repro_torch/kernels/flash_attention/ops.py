@@ -1,12 +1,23 @@
 """Wrapper of the flash-attention forward kernel, with the call contract
 of ``repro.kernels.flash_attention.ops.flash_attention_op``: model
 layout (B, S, H, hd) in and out, causal and sliding-window masks, GQA
-by head arithmetic.
+by head arithmetic, and a gradient.
 
 A CUDA tensor launches ``csrc/flash_attention.cu`` on the current
 stream; a CPU tensor runs :func:`flash_attention_ref`. The kernel masks
 the ragged Sq/Sk edge itself, so nothing is padded here. bf16 runs on
-the tensor cores, fp32 on the SIMT instance (see the source note)."""
+the tensor cores, fp32 on the SIMT instance (see the source note).
+
+Both devices go through one ``torch.autograd.Function``, the counterpart
+of the reference's ``custom_vjp`` (``_fa``/``_fa_fwd``/``_fa_bwd``): its
+forward is the kernel (or the plain version on the CPU) and saves q, k
+and v; its backward recomputes the attention with the plain formula
+under ``torch.enable_grad()`` and returns its vector-Jacobian product,
+as ``_fa_bwd`` does through ``jax.vjp`` of ``flash_attention_ref``. The
+reference has no backward Pallas kernel (its backward is XLA autodiff of
+that formula), so neither has the port: the recompute in torch ops is
+the counterpart of that XLA code. The forward launches the kernel on
+every call, also in a rematerialised layer's recompute."""
 import torch
 
 from repro_torch.kernels import common
@@ -27,8 +38,38 @@ def flash_attention_op(q, k, v, *, causal=True, window=0):
     require(k.shape[0] == B and k.shape[3] == hd and Hq % Hkv == 0,
             f"q{tuple(q.shape)} does not match k{tuple(k.shape)}")
     require(q.dtype == k.dtype == v.dtype, "q/k/v dtypes differ")
-    if common.on_cpu(q, k, v):
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _Flash.apply(q, k, v, bool(causal), int(window))
+
+
+class _Flash(torch.autograd.Function):
+    """Forward: the kernel (plain version on the CPU). Backward: the
+    plain formula recomputed from the saved q, k, v and differentiated
+    (reference ``ops.py:_fa_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        if common.on_cpu(q, k, v):
+            return flash_attention_ref(q, k, v, causal=causal,
+                                       window=window)
+        return _kernel(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = flash_attention_ref(*qkv, causal=ctx.causal,
+                                      window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None
+
+
+def _kernel(q, k, v, causal, window):
+    require = common.require
+    B, Sq, Hq, hd = q.shape
+    _, Sk, Hkv, _ = k.shape
     require(hd in HEAD_DIMS, f"kernel takes hd in {HEAD_DIMS}, got {hd}")
     require(Sq > 0 and Sk > 0, "empty sequence")
     common.check_contiguous(q=q, k=k, v=v)

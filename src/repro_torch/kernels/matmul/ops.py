@@ -57,6 +57,7 @@ def matmul_op(x, y):
     require(x.dtype == y.dtype, "x/y dtypes differ")
     if common.on_cpu(x, y):
         return matmul_ref(x, y)
+    common.refuse_grad(NAME, x.device, x, y)
     common.check_contiguous(x=x, y=y)
     M, K = x.shape
     N = y.shape[1]

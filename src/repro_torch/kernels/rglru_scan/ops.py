@@ -27,6 +27,7 @@ def rglru_scan_op(a, b, h0):
             "rglru_scan takes fp32 a, b and h0")
     if common.on_cpu(a, b, h0):
         return rglru_scan_ref(a, b, h0)
+    common.refuse_grad(NAME, a.device, a, b, h0)
     B, S, D = a.shape
     require(B > 0 and S > 0 and D > 0, "empty scan")
     common.check_contiguous(a=a, b=b, h0=h0)

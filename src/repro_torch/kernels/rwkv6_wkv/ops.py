@@ -42,6 +42,7 @@ def rwkv6_wkv_op(r, k, v, logw, u, s0):
             "rwkv6_wkv takes fp32 inputs")
     if common.on_cpu(r, k, v, logw, u, s0):
         return rwkv6_wkv_ref(r, k, v, logw, u, s0)
+    common.refuse_grad(NAME, r.device, r, k, v, logw, u, s0)
     require(K in HEAD_DIMS, f"kernel takes K in {HEAD_DIMS}, got {K}")
     require(B * H > 0 and S > 0, "empty WKV")
     common.check_contiguous(r=r, k=k, v=v, logw=logw, u=u, s0=s0)

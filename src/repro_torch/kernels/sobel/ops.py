@@ -16,6 +16,7 @@ def sobel_op(x):
                                  f"{tuple(x.shape)}")
     if common.on_cpu(x):
         return sobel_ref(x)
+    common.refuse_grad(NAME, x.device, x)
     common.check_contiguous(x=x)
     H, W = x.shape
     out = torch.empty_like(x)

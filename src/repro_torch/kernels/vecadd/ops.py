@@ -18,6 +18,7 @@ def vecadd_op(x, y):
     require(x.dtype == y.dtype, "x/y dtypes differ")
     if common.on_cpu(x, y):
         return vecadd_ref(x, y)
+    common.refuse_grad(NAME, x.device, x, y)
     common.check_contiguous(x=x, y=y)
     out = torch.empty_like(x)
     fn = common.entry(NAME, "vecadd", "ppplip")

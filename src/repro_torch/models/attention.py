@@ -110,12 +110,12 @@ def attention_core(q, k, v, *, q_pos, k_pos, window=0, causal=True):
 
 
 def attn_full(cfg, p, x, positions, cache_capacity=0, window=0,
-              causal=True):
+              causal=True, make_cache=True):
     """Causal (sliding-window when ``window > 0``) self-attention over a
     full sequence through the flash op; with ``causal=False`` (the
     encoder) through the plain core, as the reference does (its flash
     path is causal only). Returns (y, {"k","v"}) with the roped K/V in
-    compute dtype. With no
+    compute dtype (None without ``make_cache``: training). With no
     ``cache_capacity`` (or C == S) the cache is (B,S,Hkv,hd) — what the
     engine scatters into its pages; with C > S it is padded with zeros to
     C slots; with C < S it keeps the last C tokens, rolled so that
@@ -131,6 +131,8 @@ def attn_full(cfg, p, x, positions, cache_capacity=0, window=0,
     else:
         y = attention_core(q, k, v, q_pos=positions, k_pos=positions,
                            window=window, causal=False)
+    if not make_cache:
+        return _out_proj(cfg, p, y), None
     C = cache_capacity or S
     if C >= S:
         pad = (0, 0, 0, 0, 0, C - S)

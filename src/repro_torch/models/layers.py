@@ -1,6 +1,6 @@
 """Shared model layers: norms, rotary and sinusoidal positions, the swiglu
-and GELU FFNs, inits and dtype helpers — the PyTorch counterparts of
-``repro.models.layers``.
+and GELU FFNs, the softmax cross-entropy loss, inits and dtype helpers —
+the PyTorch counterparts of ``repro.models.layers``.
 
 Conventions (as in the reference)
 ---------------------------------
@@ -163,3 +163,21 @@ def apply_ffn(cfg, p, x, kind):
                    approximate="tanh")
         return h @ p["w_down"].to(cd) + p["b_down"].to(cd)
     raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """logits (B,S,V) any dtype; labels (B,S) int; mask (B,S) optional →
+    (mean loss over the masked tokens, their count): fp32 logsumexp, the
+    count clamped at 1 (reference ``layers.py:169-182``)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = lf.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - picked
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    n = mask.sum().clamp_min(1.0)
+    return (nll * mask).sum() / n, n

@@ -40,6 +40,7 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -322,44 +323,47 @@ def _keep_live(rows, new, live):
 
 
 def _mixer_full(cfg, spec, p, h, positions, capacity, row0=None,
-                causal=True):
-    """→ (y, K/V cache or None, mixer rows or None)."""
+                causal=True, make_cache=True):
+    """→ (y, K/V cache or None, mixer rows or None); no cache and no rows
+    without ``make_cache``."""
     if spec.is_attn:
         y, kv = attn.attn_full(cfg, p, h, positions, capacity,
-                               window=_window(cfg, spec), causal=causal)
+                               window=_window(cfg, spec), causal=causal,
+                               make_cache=make_cache)
         return y, kv, None
     if spec.mixer == "rglru":
         y, mc = rec.rglru_full(
             cfg, p, h, h0=row0["h"] if row0 else None,
-            conv0=row0["conv"] if row0 else None, make_cache=True)
+            conv0=row0["conv"] if row0 else None, make_cache=make_cache)
     else:
-        y, mc = rec.rwkv_tmix_full(cfg, p, h, cache=row0, make_cache=True)
+        y, mc = rec.rwkv_tmix_full(cfg, p, h, cache=row0,
+                                   make_cache=make_cache)
     return y, None, mc
 
 
-def _ffn_full(cfg, spec, p, h2, row0=None):
-    """→ (y, ffn rows or None)."""
+def _ffn_full(cfg, spec, p, h2, row0=None, make_cache=True):
+    """→ (y, ffn rows or None, the MoE's aux loss or None); serving
+    leaves the aux loss unused."""
     if spec.ffn == "channelmix":
-        return rec.channelmix_full(cfg, p, h2, cache=row0, make_cache=True)
-    return _ffn(cfg, spec, p, h2), None
-
-
-def _ffn(cfg, spec, p, h2):
-    """A stateless FFN: the MoE (its aux loss unused when serving) or a
-    dense one of the layer's kind."""
+        y, rows = rec.channelmix_full(cfg, p, h2, cache=row0,
+                                      make_cache=make_cache)
+        return y, rows, None
     if spec.ffn == "moe":
-        return moe_mod.apply_moe(cfg, p, h2)[0]
-    return apply_ffn(cfg, p, h2, kind=spec.ffn)
+        y, aux = moe_mod.apply_moe(cfg, p, h2)
+        return y, None, aux
+    return apply_ffn(cfg, p, h2, kind=spec.ffn), None, None
 
 
 def apply_layer_full(cfg, spec, p, x, positions, capacity=0, enc_out=None,
-                     causal=True):
-    """Full-sequence layer → (x', K/V of this layer or None, its rows);
-    an enc-dec decoder layer attends to ``enc_out`` after its mixer and
-    keeps the cross K/V in its rows."""
+                     causal=True, make_cache=True):
+    """Full-sequence layer → (x', K/V of this layer or None, its rows,
+    its MoE aux loss or None); an enc-dec decoder layer attends to
+    ``enc_out`` after its mixer and keeps the cross K/V in its rows.
+    Without ``make_cache`` (training) no K/V and no rows are kept."""
     h = apply_norm(cfg, p["norm1"], x)
     y, kv, mrows = _mixer_full(cfg, spec, p["mixer"], h, positions,
-                               capacity, causal=causal)
+                               capacity, causal=causal,
+                               make_cache=make_cache)
     x = x + y.to(x.dtype)
     rows = {}
     if mrows is not None:
@@ -368,12 +372,14 @@ def apply_layer_full(cfg, spec, p, x, positions, capacity=0, enc_out=None,
         hc = apply_norm(cfg, p["norm_cross"], x)
         ckv = attn.cross_kv(cfg, p["cross"], enc_out)
         x = x + attn.cross_attn_full(cfg, p["cross"], hc, ckv).to(x.dtype)
-        rows["cross"] = ckv
+        if make_cache:
+            rows["cross"] = ckv
     h2 = apply_norm(cfg, p["norm2"], x)
-    y2, frows = _ffn_full(cfg, spec, p["ffn"], h2)
+    y2, frows, aux = _ffn_full(cfg, spec, p["ffn"], h2,
+                               make_cache=make_cache)
     if frows is not None:
         rows["ffn"] = frows
-    return x + y2.to(x.dtype), kv, rows
+    return x + y2.to(x.dtype), kv, rows, aux
 
 
 def _copy_rows(rows, new):
@@ -399,7 +405,7 @@ def apply_layer_decode_ring(cfg, spec, p, x, cache, rows, pos, pvec):
         y2, fc = rec.channelmix_decode(cfg, p["ffn"], h2, rows["ffn"])
         _copy_rows(rows["ffn"], fc)
     else:
-        y2 = _ffn(cfg, spec, p["ffn"], h2)
+        y2 = _ffn_full(cfg, spec, p["ffn"], h2)[0]
     return x + y2.to(x.dtype)
 
 
@@ -433,7 +439,7 @@ def apply_layer_decode(cfg, spec, p, x, pools, rows, positions,
     else:
         # a MoE routes every slot's row, dead ones included: they take
         # capacity as the reference's do
-        y2 = _ffn(cfg, spec, p["ffn"], h2)
+        y2 = _ffn_full(cfg, spec, p["ffn"], h2)[0]
     return x + y2.to(x.dtype)
 
 
@@ -465,8 +471,8 @@ def apply_layer_chunk(cfg, spec, p, x, pools, rows, positions, block_row,
         put("mixer", mc)
     x = x + y.to(x.dtype)
     h2 = apply_norm(cfg, p["norm2"], x)
-    y2, fc = _ffn_full(cfg, spec, p["ffn"], h2,
-                       row0("ffn") if spec.ffn == "channelmix" else None)
+    y2, fc, _ = _ffn_full(cfg, spec, p["ffn"], h2,
+                          row0("ffn") if spec.ffn == "channelmix" else None)
     if fc is not None:
         put("ffn", fc)
     return x + y2.to(x.dtype)
@@ -481,32 +487,72 @@ def _pools(state, a):
     return None if a is None else {"k": state["k"][a], "v": state["v"][a]}
 
 
+def _requires_grad(tree):
+    """Whether any tensor leaf of the nested dict/list ``tree`` requires
+    a gradient."""
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        tree = tree.values()
+    return any(_requires_grad(t) for t in tree)
+
+
+def _maybe_remat(cfg, fn, layers):
+    """``cfg.sharding.remat`` (reference ``lm.py:_maybe_remat``) while a
+    gradient reaches ``layers``' leaves: ``"none"`` runs ``fn`` as it is;
+    ``"full"`` keeps only each layer's inputs and recomputes the layer in
+    the backward (``torch.utils.checkpoint``, non-reentrant). XLA's
+    ``"dots"`` policy (keep the projections' outputs) has no torch
+    counterpart: it is taken as ``"full"``. Serving (params that require
+    no gradient) never remats. The recompute gives the same numbers, so
+    remat changes memory and time, never the result."""
+    if (cfg.sharding.remat == "none" or not torch.is_grad_enabled()
+            or not _requires_grad(layers)):
+        return fn
+
+    def remat(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return remat
+
+
 def apply_stack_full(cfg, specs, layers, x, positions, capacity=0,
-                     enc_out=None, causal=True):
-    """→ (x, caches): ``{"k","v"}`` stacked (La, B, C, Hkv, hd) over the
-    attention layers when there are any — C = S with no ``capacity``,
-    else the rings of :func:`init_stack_cache` (a ``swa`` layer keeps its
-    last ``min(window, capacity)`` tokens, where the reference keeps
+                     enc_out=None, causal=True, make_cache=True):
+    """→ (x, caches, aux): ``aux`` the sum of the MoE layers' aux losses
+    (fp32, 0 without MoE), as in the reference; ``caches`` are
+    ``{"k","v"}`` stacked (La, B, C, Hkv, hd) over the attention layers
+    when there are any — C = S with no ``capacity``, else the rings of
+    :func:`init_stack_cache` (a ``swa`` layer keeps its last
+    ``min(window, capacity)`` tokens, where the reference keeps
     ``capacity`` and masks all but the window at decode: the same tokens
     are read) — and ``"rows"`` (per layer, batch rows) when any layer
     has rows. ``enc_out`` feeds the cross attention of an enc-dec
-    decoder; the encoder runs with ``causal=False``."""
-    ks, vs, rows = [], [], []
+    decoder; the encoder runs with ``causal=False``. Without
+    ``make_cache`` (the training forward and the encoder) ``caches`` is
+    None and each layer runs under :func:`_maybe_remat`."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if capacity:
         capacity = ring_capacity(cfg, specs, capacity) or capacity
+    layer = apply_layer_full
+    if not make_cache:
+        layer = _maybe_remat(cfg, layer, layers)
+    ks, vs, rows = [], [], []
     for spec, p in zip(specs, layers):
-        x, kv, r = apply_layer_full(cfg, spec, p, x, positions, capacity,
-                                    enc_out, causal)
+        x, kv, r, a = layer(cfg, spec, p, x, positions, capacity, enc_out,
+                            causal, make_cache)
+        if a is not None:
+            aux = aux + a
         if kv is not None:
             ks.append(kv["k"])
             vs.append(kv["v"])
         rows.append(r)
+    if not make_cache:
+        return x, None, aux
     caches = {}
     if ks:
         caches["k"], caches["v"] = torch.stack(ks), torch.stack(vs)
     if any(rows):
         caches["rows"] = rows
-    return x, caches
+    return x, caches, aux
 
 
 def apply_stack_decode_ring(cfg, specs, layers, x, caches, pos, pvec):

@@ -31,7 +31,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import lm
 from repro_torch.models.layers import (abs_position_vector, add_abs_positions,
                                        apply_norm, dense_init, dt,
-                                       embed_init, init_norm)
+                                       embed_init, init_norm,
+                                       softmax_cross_entropy)
 from repro_torch.models.recurrent import FP32_PARAMS
 
 #: seed of the fused step's Gumbel draws, combined with the step number
@@ -176,9 +177,10 @@ class Model:
             x = x @ params["enc_proj"].to(cd)
         x = add_abs_positions(x)
         enc = params["encoder"]
-        x, _ = lm.apply_stack_full(
+        x, _, _ = lm.apply_stack_full(
             cfg, self.enc_specs, enc["layers"], x,
-            torch.arange(x.shape[1], device=x.device), causal=False)
+            torch.arange(x.shape[1], device=x.device), causal=False,
+            make_cache=False)
         return apply_norm(cfg, enc["final_norm"], x)
 
     def _assemble_inputs(self, params, batch):
@@ -209,6 +211,32 @@ class Model:
         return logits
 
     # ------------------------------------------------------------------
+    # Full-sequence forward and loss (the train path)
+    # ------------------------------------------------------------------
+    def forward(self, params, batch):
+        """→ (logits (B, S, V*), the MoE aux loss (fp32, 0 without
+        MoE)); S counts the VLM's image rows before the text. No caches
+        are built; each layer runs under ``cfg.sharding.remat`` while a
+        gradient is recorded (reference ``model.py:121-131``). Train
+        from ``init``'s tree (``param_dtype``): the layers cast each
+        weight per call, so the gradients land on those leaves."""
+        x, enc_out = self._assemble_inputs(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _, aux = lm.apply_stack_full(self.cfg, self.specs,
+                                        params["layers"], x, positions,
+                                        enc_out=enc_out, make_cache=False)
+        return self._lm_logits(params, x), aux
+
+    def loss(self, params, batch):
+        """batch adds ``"labels"`` (B, S) and ``"mask"`` (B, S) — over
+        the whole sequence, image rows included (the pipeline's mask is
+        0 there) → (ce + aux, {"ce", "aux", "n_tok"})."""
+        logits, aux = self.forward(params, batch)
+        ce, n_tok = softmax_cross_entropy(logits, batch["labels"],
+                                          batch.get("mask"))
+        return ce + aux, {"ce": ce, "aux": aux, "n_tok": n_tok}
+
+    # ------------------------------------------------------------------
     # Prefill → (last-token logits, K/V caches)
     # ------------------------------------------------------------------
     def prefill(self, params, batch, capacity=None):
@@ -221,9 +249,9 @@ class Model:
         layer; see ``lm``)."""
         x, enc_out = self._assemble_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, caches = lm.apply_stack_full(self.cfg, self.specs,
-                                        params["layers"], x, positions,
-                                        capacity or 0, enc_out=enc_out)
+        x, caches, _ = lm.apply_stack_full(self.cfg, self.specs,
+                                           params["layers"], x, positions,
+                                           capacity or 0, enc_out=enc_out)
         return self._lm_logits(params, x[:, -1:])[:, 0], caches
 
     # ------------------------------------------------------------------

@@ -16,6 +16,11 @@ the lower expert index (``jax.lax.top_k``'s rule: a stable descending
 sort, where ``torch.topk`` promises no order), and the combine sums a
 token's K contributions in a fixed order (``index_add_`` on CUDA adds
 atomically, in no fixed order).
+
+Training reads ``apply_moe``'s aux loss through ``lm.apply_stack_full``,
+which sums it over the layers into ``Model.loss``. The dispatch and the
+combine are differentiable as written: their one indexed write fills a
+fresh buffer (``contrib``) that nothing saved before it.
 """
 from __future__ import annotations
 

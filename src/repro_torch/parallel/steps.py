@@ -1,5 +1,6 @@
-"""Step builders: assemble a model into prefill / decode step programs on
-one device — the PyTorch counterparts of ``repro.parallel.steps``.
+"""Step builders: assemble a model into train / prefill / decode step
+programs on one device — the PyTorch counterparts of
+``repro.parallel.steps``.
 
 The virtualization compile service (``core/reconfig.py``) builds the
 VMM's programs here, and native callers use the same builders: the
@@ -7,18 +8,25 @@ paper's *fidelity* criterion (one artifact for native and virtualized
 execution). Each builder returns ``(step, abstract_args)``: ``step`` is
 an eager callable that runs on the device its inputs live on, and
 ``abstract_args`` are meta tensors (shapes and dtypes, no data), with
-parameters in bf16 as the reference's ``dtype_override`` makes them.
+serving parameters in bf16 as the reference's ``dtype_override`` makes
+them and training parameters in ``param_dtype``.
 Sharding across devices is not ported: a step runs on one device.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import optim
 from repro_torch.models import Model
 
 #: the CUDA kernels a step kind launches for each mixer of the stack
-#: (built and loaded at compile); rwkv's one-token step is plain PyTorch
-STEP_KERNELS = {"prefill": {"attn": "flash_attention",
+#: (built and loaded at compile); rwkv's one-token step is plain PyTorch.
+#: A train step launches flash in the forward (and again in each
+#: rematerialised layer's recompute); the recurrences' kernels have no
+#: backward in the port and refuse to run under a gradient.
+STEP_KERNELS = {"train": {"attn": "flash_attention",
+                          "swa": "flash_attention"},
+                "prefill": {"attn": "flash_attention",
                             "swa": "flash_attention",
                             "rglru": "rglru_scan", "rwkv": "rwkv6_wkv"},
                 "decode": {"attn": "decode_attention",
@@ -83,11 +91,26 @@ def build_decode(cfg, device, cell):
     return decode_step, (params_abs, cache_abs, token_abs, pos_abs)
 
 
-def build_step_for_cell(cfg, device, cell):
-    """Dispatch on the cell kind."""
+def build_train(cfg, device, cell, opt_cfg=None):
+    """→ (train_step, abstract_args). train_step(params, opt_state,
+    batch) → (params, opt_state, metrics) is ``optim.make_train_step``
+    over ``Model(cfg, device).loss``: new trees, the inputs untouched
+    (the reference donates them). ``opt_cfg`` defaults to
+    ``OptConfig(state_dtype=cfg.opt_dtype)``."""
+    model = Model(cfg, device=device)
+    if opt_cfg is None:
+        opt_cfg = optim.OptConfig(state_dtype=cfg.opt_dtype)
+    params_abs = abstract_params(model)
+    opt_abs = optim.init(opt_cfg, params_abs)
+    batch_abs = model.input_specs(cell)
+    return (optim.make_train_step(model, opt_cfg),
+            (params_abs, opt_abs, batch_abs))
+
+
+def build_step_for_cell(cfg, device, cell, opt_cfg=None):
+    """Dispatch on the cell kind (``opt_cfg`` for a train cell)."""
     if cell.kind == "train":
-        raise NotImplementedError(
-            "train steps are not ported yet (the training slice)")
+        return build_train(cfg, device, cell, opt_cfg)
     if cell.kind == "prefill":
         return build_prefill(cfg, device, cell)
     if cell.kind == "decode":

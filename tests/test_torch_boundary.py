@@ -34,6 +34,19 @@ def _port_files():
     return sorted(out)
 
 
+EXAMPLES = sorted(os.path.join(ROOT, "examples", f)
+                  for f in os.listdir(os.path.join(ROOT, "examples"))
+                  if f.startswith("torch_") and f.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", EXAMPLES,
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_examples_import_no_jax_or_repro(path):
+    bad = {r for r in _imported_roots(path) if r in ("jax", "jaxlib",
+                                                      "repro")}
+    assert not bad, f"{path} imports {bad}"
+
+
 def _imported_roots(path):
     tree = ast.parse(open(path, encoding="utf-8").read(), path)
     for node in ast.walk(tree):
@@ -53,11 +66,13 @@ def test_no_jax_or_repro_import(path):
 
 
 @pytest.mark.parametrize("sub", ["core", "checkpointing", "parallel",
+                                 "optim", "data",
                                  os.path.join("launch", "apps.py"),
-                                 os.path.join("launch", "serve.py")])
+                                 os.path.join("launch", "serve.py"),
+                                 os.path.join("launch", "train.py")])
 def test_boundary_checks_cover_the_virtualization_slice(sub):
     """The AST walk and the fresh-interpreter import below reach the
-    VMM's subpackages and the entry points."""
+    VMM's subpackages, the training path and the entry points."""
     files = [os.path.relpath(p, PORT) for p in _port_files() if p != SMOKE]
     assert any(f == sub or f.startswith(sub + os.sep) for f in files), sub
 
@@ -74,6 +89,7 @@ def test_import_pulls_in_no_jax():
                       for m in mods)
             + "import repro_torch.launch.serve\n"
             "import repro_torch.launch.apps\n"
+            "import repro_torch.launch.train\n"
             "import repro_torch.core.vmm\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
@@ -137,10 +153,12 @@ def test_port_init_matches_reference_shapes():
 
 def test_entry_points_need_a_device(monkeypatch):
     """No device given and no CUDA → raise, never run on the CPU."""
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main([])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Model(get_config("qwen1.5-0.5b", reduced=True))
 
