@@ -65,7 +65,7 @@ Phases, each printing its lines and raising on any failure:
    leased == freed too; then chunked through a VMM tenant (``slo``):
    the native ids, and the virtualization ratio of the step p50. Every
    family's weights are made once (rwkv6-7b first, on an empty card) and
-   shared by phases 3–7 and 9–10;
+   shared by phases 3–7 and 9;
 7. VMM programs — a tenant reprograms the full-width prefill program
    (B=4, S=4096) and the decode program of the same capacity, runs the
    prefill and 32 greedy decode steps through the guest API at pos
@@ -89,58 +89,76 @@ Phases, each printing its lines and raising on any failure:
    unpressured ids, leased == freed, refcounts consistent, swap-out and
    refault times); ``recurrentgemma-2b``'s state rows parked and
    refaulted under the same pressure with the unpressured ids;
-10. mux — the three families as bitstreams in one ``ModelRegistry`` on a
-   VMM's loader, one ``MuxEngine``: the ids of solo engines, before and
-   after churn under ``max_resident=1`` (swaps both ways, CRC over every
+10. mux — the eight decoder-only families at full width, qwen and
+   recurrentgemma at full depth, the other six cut to 2 layers (mixtral
+   2 of its 8 experts, kimi 8 of 384), as bitstreams in one
+   ``ModelRegistry`` on a VMM's loader, one ``MuxEngine``: the ids of
+   solo engines, before and after churn of qwen, recurrentgemma and
+   rwkv6 under ``max_resident=1`` (swaps both ways, CRC over every
    weight byte at register and swap-in, no failure); a flipped byte in a
    host copy is refused and counted once; swap-in and swap-out times;
+   internvl2 and whisper stay outside the mux, as in the reference;
 11. families — the repo's other seven families through ``ServeEngine``
    (random weights from seed 0, made in bf16; batch 4, 16-token pages,
    the same 8 requests): internlm2-1.8b, phi3-mini-3.8b, starcoder2-15b
    at full depth, mixtral-8x7b cut to 16 of 32 layers, kimi-k2 to its
    dense first layer and one MoE layer (384 experts, top-8), internvl2-2b
    (256 stub image rows, capacity 512) and whisper-medium (1500 stub
-   frames), monolithic and, but for the last two, chunked: the serve
-   gates and each path's kernels; then each family's card-vs-CPU
+   frames), monolithic and, but for the last two, chunked, then
+   monolithic through a VMM tenant (``hybrid``; ids equal native): the
+   serve gates and each path's kernels; then each family's card-vs-CPU
    reference at full width in fp32, cut to one layer (kimi its two, with
    16 experts; whisper one encoder and one decoder layer): prefill logits
    and 3 paged decode steps within 1e-3, and for the MoE families every
    (token, k) expert pick (a pick may differ only at a near tie, < 1e-5,
-   and is reported); TTFT, tok/s and the step p50 beside the card's name
-   and power limit;
+   and is reported); TTFT, tok/s, the step p50 and the virtualized /
+   native step ratio beside the card's name and power limit;
 12. train — flash under autograd (the kernel forward inside its
    ``autograd.Function``, the plain backward) against autograd through
    the plain version at qwen's 16/16 hd 64 (B=2 S=512), hd 128 48/4 and
    hd 256 10/1 with window 2048 at S=2500, bf16 and fp32: the forward
    within two ulps / 2e-5; dq dk dv within 3e-2 / 2e-5, a check of the
    ``Function``'s wiring (saved inputs, window, one forward launch), not
-   of a kernel, since its backward is the plain version's own; the
-   recurrent families'
-   loss refused on the card (their kernels have no backward); qwen at
-   full width cut to 2 layers, fp32, B=2 S=256: one train step on the
-   card and on the CPU (plain, 2 micro-steps, 2 micro-steps with bf16
-   accumulation), loss and grad_norm within 1e-4 relative, every
-   parameter leaf with a finite nonzero gradient on the card; then
-   ``qwen1.5-0.5b`` at full width and depth (``remat="full"``, bf16), 12
-   steps of B=4 S=2048 from ``pipeline_for(seed=0)``: finite losses, the
-   last below the first, step 0's batch easier after the run, 48 flash
-   launches a step; step p50, tokens/s, peak memory and one profiled step
-   (busy share, the share of flash's recomputed backward); the step-5
-   checkpoint (``CheckpointManager``, async) restored into fresh trees and
-   run to step 10, and the 12 steps through a VMM tenant's ``train``
-   program (``hybrid``), both within 1e-5 relative of the native losses
-   (reported bitwise too), with the virtualized / native step ratio;
+   of a kernel, since its backward is the plain version's own; the RG-LRU
+   scan's and the WKV's ``Function`` (the scan's backward one more launch
+   of the scan over the time-reversed inputs, the WKV's the chunked form
+   recomputed in torch ops) against autograd through their plain versions
+   at (1, 130, 2560), (4, 2048, 2560) and (1, 64, 130, 64), (4, 64, 2048,
+   64): forward bit-equal / within 2e-3, every input gradient (dh0, du,
+   ds0 included) within 1e-5 / 1e-4 by relative norm, 2 / 1 launches a
+   call; qwen at full width cut to 2 layers, fp32, B=2 S=256: one train
+   step on the card and on the CPU (plain, 2 micro-steps, 2 micro-steps
+   with bf16 accumulation), loss and grad_norm within 1e-4 relative,
+   every parameter leaf with a finite nonzero gradient on the card, and
+   the same plain step for both recurrent families; then every family of
+   ``TRAIN_FAMILIES`` at full width from ``pipeline_for(seed=0)`` with
+   the train driver's AdamW: ``qwen1.5-0.5b`` at full depth, 12 steps of
+   B=4 S=2048, the nine others 4 steps each with depth, kimi's experts, B
+   and S cut as one card's memory forces (the reckoning printed beside
+   the peak). Each: every leaf a finite nonzero gradient, finite losses,
+   step 0's batch easier right after step 0 and after the last step,
+   each step's launches of flash, the scan and the WKV as the block
+   pattern gives them (qwen: 48 flash launches); step p50, tokens/s and
+   peak memory. qwen's last step's loss below its first, one profiled
+   step (busy share, the share of flash's recomputed backward), the
+   step-5 checkpoint (``CheckpointManager``, async) restored into fresh
+   trees and run to step 10; qwen and both recurrent families through a
+   VMM tenant's ``train`` program (``hybrid``); resumed and virtualized
+   losses within 1e-5 relative of the native ones (reported bitwise
+   too), with the virtualized / native step ratio; one profiled rwkv6
+   step (the WKV backward's share);
 13. apps — the paper's three apps (``launch/apps.py``) native and through
    three bound tenants, at the reference size and at the card's;
 14. times — per mode TTFT, throughput and the median engine step; per
-   kernel its device time (torch.profiler/CUPTI; the per-call CUDA-event
-   time is printed beside it), its plain version's, one PyTorch call
+   kernel (timed right after phase 2, printed at the end) its device
+   time (torch.profiler/CUPTI; the per-call CUDA-event time is printed
+   beside it), its plain version's, one PyTorch call
    computing the same function (``library_ms``, a yardstick the port
    never calls; none for the two recurrences; vecadd and ``torch.add``
    timed in turns), the bound, and the achieved TFLOP/s and share of the
    bound, with its launches on the paths; the sampler at the three served
    vocabularies; the scan and the WKV also at one chunked-prefill call
-   (S=32); flash also at
+   (S=32) and at the families' train shape (B=1, S=2048); flash also at
    B=4 S=4096, at the train phase's B=4 S=2048 and at hd 256 S=2500 with
    window 2048; fused decode also
    at a long
@@ -1325,7 +1343,8 @@ def count_path(path, counts, launches):
 
 
 def virtualized_phase(mode, policy, cfg, model, params, requests, native,
-                      launches, path=None, engine_kw=None, strict=False):
+                      launches, path=None, engine_kw=None, strict=False,
+                      capacity=256):
     """The native phase's requests through a VMM tenant (one 1×1 slice of
     the card, pool sized from the card): every step via
     ``tenant.device.run``, KV pages from the tenant's MMU pool, the
@@ -1341,7 +1360,7 @@ def virtualized_phase(mode, policy, cfg, model, params, requests, native,
         chunk = 32 if mode == "chunked" else 0
         common.reset_launches()
         eng, outs, wall, steps = serve(
-            cfg, model, params, requests, chunk,
+            cfg, model, params, requests, chunk, capacity=capacity,
             engine_kw={**(engine_kw or {}), **virtualized_engine_kw(tenant)})
         counts = dict(common.LAUNCHES)
         st = vmm.stats()
@@ -1783,8 +1802,8 @@ def recurrent_reference_phase(device):
 
 def build_weights(device):
     """Every served family's weights once (random from seed 0, product
-    weights in bf16), reused by the serve, VMM-program, KV-hierarchy and
-    mux phases: rwkv6-7b first, on an empty card, since its fp32 init
+    weights in bf16), reused by the serve, VMM-program and KV-hierarchy
+    phases: rwkv6-7b first, on an empty card, since its fp32 init
     (~30 GB) lives until its bf16 copy exists."""
     import torch
     from repro_torch.configs import get_config
@@ -2129,33 +2148,63 @@ def kv_hierarchy_phase(device, launches, weights):
         raise AssertionError("kv-hierarchy: state swap gates failed")
 
 
-def mux_phase(device, launches, weights):
-    """qwen1.5-0.5b, recurrentgemma-2b and rwkv6-7b at full width as
-    bitstreams in one ``ModelRegistry`` that shares a VMM's
-    ``ProgramLoader``, served by one ``MuxEngine`` (batch 2 a family,
-    capacity 256, chunk_tokens 32, greedy, two prompts a family,
-    interleaved): the ids of solo ``ServeEngine`` runs on the same
-    weights; then churn under ``max_resident=1`` (one request a family in
-    turn, qwen first: the budget evicts the other two, and each of them
-    is swapped back in for its turn): at least 2 swap-ins and 2
-    swap-outs, no CRC failure, the solo ids; then a flipped byte in a
-    swapped-out host copy raises ``LegalityError`` and counts one CRC
-    failure. The registry takes over
-    the weights (``weights`` is emptied), so a swap-out frees the card."""
+#: the mux's families: all eight decoder-only families at full width,
+#: (arch, layers kept (None: all), experts kept (None: all)). The CRC
+#: hashes every weight byte on the host at ~0.25 GB/s, so depth is time:
+#: qwen and recurrentgemma stay at full depth (their swap-ins move 1.24
+#: and 6.72 GB), rwkv6 (15.2 GB at full depth, ~110 s of hashing at
+#: register and swap-in) and the other five are cut to
+#: 2 layers, mixtral keeping 2 of its 8 experts (top-2) and kimi its
+#: dense first layer and one MoE layer with 8 of 384 experts (top-8):
+#: the script stays inside its 1200 s
+MUX_FAMILIES = (("qwen1.5-0.5b", None, None),
+                ("recurrentgemma-2b", None, None), ("rwkv6-7b", 2, None),
+                ("internlm2-1.8b", 2, None), ("phi3-mini-3.8b", 2, None),
+                ("starcoder2-15b", 2, None), ("mixtral-8x7b", 2, 2),
+                ("kimi-k2-1t-a32b", 2, 8))
+#: the families served again one at a time under max_resident=1
+MUX_CHURN = ("qwen1.5-0.5b", "recurrentgemma-2b", "rwkv6-7b")
+
+
+def mux_phase(device, launches):
+    """The eight families of ``MUX_FAMILIES`` at full width, cut as it
+    says (random bf16 weights from seed 0), as bitstreams
+    in one ``ModelRegistry`` that shares a VMM's ``ProgramLoader``,
+    served by one ``MuxEngine`` (batch 2 a family, capacity 256,
+    chunk_tokens 32, greedy, two prompts a family, interleaved): the ids
+    of solo ``ServeEngine`` runs on the same weights; then churn under
+    ``max_resident=1`` (one request of each of ``MUX_CHURN`` in turn:
+    the budget evicts every other family, and each of the three is
+    swapped back in for its turn): at least 2 swap-ins and 2 swap-outs,
+    no CRC failure, the solo ids; then a flipped byte in a swapped-out
+    host copy raises ``LegalityError`` and counts one CRC failure. The
+    registry takes over the weights, so a swap-out frees the card.
+    internvl2-2b and whisper-medium stay outside the mux, as in the
+    reference (its ``serve --models`` is chunked only and passes no
+    frontend inputs)."""
     import torch
     from repro_torch.core import LegalityError
     from repro_torch.kernels import common
     from repro_torch.launch.serve import virtual_server
     from repro_torch.obs import ObsHub
     from repro_torch.serving import ModelRegistry, MuxEngine
-    names = ["qwen1.5-0.5b", "recurrentgemma-2b", "rwkv6-7b"]
-    prompts, solo = {}, {}
-    for i, name in enumerate(names):
-        cfg, model, params = weights[name]
+    from repro_torch.models import Model
+    names = [name for name, _, _ in MUX_FAMILIES]
+    prompts, solo, weights = {}, {}, {}
+    for i, (name, depth, n_experts) in enumerate(MUX_FAMILIES):
+        cfg = family_cfg(name, depth, n_experts=n_experts)
+        model = Model(cfg, device)
+        params = model.init_compute_params(
+            torch.Generator(device=device).manual_seed(0))
+        weights[name] = (cfg, model, params)
         prompts[name] = [(p, 32, 0.0) for p, _, _ in
                          make_requests(cfg.vocab, 2, seed=30 + i)]
         solo[name] = serve(cfg, model, params, prompts[name], 32, batch=2,
                            engine_kw={"state_paging": True})[1]
+    log(f"[mux] {len(names)} families at full width: "
+        + ", ".join(f"{n} {weights[n][0].n_layers} layers" for n in names)
+        + " (mixtral 2 of 8 experts, kimi 8 of 384); internvl2-2b and "
+        "whisper-medium outside the mux, as in the reference")
     obs = ObsHub(enabled=True)
     vmm, _ = virtual_server(device, "hybrid")
     try:
@@ -2189,7 +2238,8 @@ def mux_phase(device, launches, weights):
             return [r.out_tokens for r in sorted(done, key=lambda r: r.rid)]
 
         first = {n: ordered(finished[n]) for n in names}
-        log(f"[mux] 3 families, 6 requests interleaved in {wall:.3f}s: ids "
+        log(f"[mux] {len(names)} families, {2 * len(names)} requests "
+            f"interleaved in {wall:.3f}s: ids "
             f"vs solo runs: "
             + ", ".join(f"{n} {'identical' if first[n] == solo[n] else 'DIFFER'}"
                         for n in names))
@@ -2204,7 +2254,7 @@ def mux_phase(device, launches, weights):
             if ordered(mux.run_round()[name])[0] != solo[name][0]:
                 raise AssertionError(f"mux: {name} ids differ after churn")
 
-        for name in names:
+        for name in MUX_CHURN:
             serve_one(name)
         st = reg.stats()
         swaps_in = sum(m["swap_ins"] for m in st["models"].values())
@@ -2214,7 +2264,7 @@ def mux_phase(device, launches, weights):
             f"{st['crc_checks']} crc_failures={st['crc_failures']}")
         if swaps_in < 2 or swaps_out < 2 or st["crc_failures"] != 0:
             raise AssertionError("mux: churn gates failed")
-        victim = min((n for n in names if not reg.residency()[n]),
+        victim = min((n for n in MUX_CHURN if not reg.residency()[n]),
                      key=lambda n: reg[n].param_bytes)
         byte = reg[victim].host_params["tok_embed"].view(torch.uint8).view(-1)
         byte[0] ^= 1                                   # one flipped bit
@@ -2233,7 +2283,7 @@ def mux_phase(device, launches, weights):
         serve_one(victim)
         st = reg.stats()
         hist = obs.registry.snapshot()["histograms"]
-        for name in names:
+        for name in MUX_CHURN:
             m = st["models"][name]
             si = hist.get("model_swap_in_s", {})
             so = hist.get("model_swap_out_s", {})
@@ -2281,6 +2331,8 @@ for _arch, _short, *_ in FAMILIES:
                                             "fused_paged_decode")
     PATH_KERNELS[f"{_short}-chunked"] = ("fused_paged_decode",
                                          "sample_tokens")
+    PATH_KERNELS[f"{_short}-virtualized"] = ("flash_attention",
+                                             "fused_paged_decode")
 
 
 def family_cfg(arch, depth=None, **kw):
@@ -2422,10 +2474,13 @@ def families_phase(device, launches, smi):
     card (random weights from seed 0, made in bf16; bf16 compute; batch
     4, 16-token pages, the phases' 8 requests): monolithic, and chunked
     (``chunk_tokens=32``) for all but the VLM and the enc-dec, which
-    prefill monolithically. Per family and mode: every request finishes,
+    prefill monolithically; then monolithic through a VMM tenant
+    (``hybrid``, every step through the guest API, pages from the
+    tenant's pool). Per family and mode: every request finishes,
     ``full_prefills == 0``, pages (and state pages) leased == freed,
-    every id below the vocabulary, each kernel of the path launched;
-    then the family's card-vs-CPU reference. Each family's weights are
+    every id below the vocabulary, each kernel of the path launched, the
+    virtualized ids equal the native monolithic ones; then the family's
+    card-vs-CPU reference. Each family's weights are
     made and freed in turn; the times print beside the card's name and
     power limit (``smi``)."""
     import torch
@@ -2467,6 +2522,18 @@ def families_phase(device, launches, smi):
             log(f"[time:{path}] {smi}: ttft p50 {r['ttft_p50_ms']:.2f} ms, "
                 f"{r['tok_s']:.1f} tok/s over the run, engine step p50 "
                 f"{r['step_p50_ms']:.3f} ms")
+            if mode == "monolithic":
+                native = r
+        # the same requests through a VMM tenant (``serve --virtualized``,
+        # hybrid): every step via the guest API, pages from its pool
+        v = virtualized_phase("monolithic", "hybrid", cfg, model, params,
+                              requests, native["outs"], launches,
+                              path=f"{short}-virtualized", engine_kw=kw,
+                              strict=True, capacity=capacity)
+        log(f"[time:{short}-virtualized] {smi}: {v['tok_s']:.1f} tok/s over "
+            f"the run, engine step p50 {v['step_p50_ms']:.3f} ms (native "
+            f"{native['step_p50_ms']:.3f} ms, ratio "
+            f"{v['step_p50_ms'] / native['step_p50_ms']:.3f})")
         del params, model
         torch.cuda.empty_cache()
         family_reference(device, arch, ref_depth, ref_experts)
@@ -2493,8 +2560,6 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, RESUME_AT, RESUME_TO = 4, 2048, 12, 5, 10
 #: 1e-5 relative of the uninterrupted native run
 TRAIN_REF_DEPTH, TRAIN_REF_B, TRAIN_REF_S, TRAIN_REF_RTOL = 2, 2, 256, 1e-4
 RESUME_RTOL = 1e-5
-PATH_KERNELS["train"] = ("flash_attention",)
-PATH_KERNELS["virtualized-train"] = ("flash_attention",)
 
 
 def check_flash_grad(device, shapes=FLASH_GRAD_SHAPES):
@@ -2546,38 +2611,138 @@ def check_flash_grad(device, shapes=FLASH_GRAD_SHAPES):
         del q, k, v, up, res, out, grads, want, wgrads
 
 
-def check_train_refusals(device):
-    """A loss through a kernel without a backward raises on the card
-    (the recurrent families: their scan and WKV kernels refuse a
-    gradient) instead of training with a detached output."""
+#: the recurrences' gradient on the card, at the served shapes already
+#: timed: the scan (B, S, D), the WKV (B, H, S, K)
+SCAN_GRAD_SHAPES = ((1, 130, 2560), (4, 2048, 2560))
+WKV_GRAD_SHAPES = ((1, 64, 130, 64), (4, 64, 2048, 64))
+#: each input gradient against autograd through the plain version, by
+#: relative norm ||g - w|| <= tol ||w||: the scan's backward is the same
+#: serial recurrence (the reversed scan); the WKV's differentiates the
+#: chunked form where the plain version is the serial token loop
+SCAN_GRAD_RTOL, WKV_GRAD_RTOL = 1e-5, 1e-4
+
+
+def _grad_agree(name, what, got, want, rtol):
+    """Each of ``got`` (the Function's input gradients) against ``want``
+    (autograd through the plain version) by relative norm."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models import Model
-    from repro_torch import optim
-    for arch, _, _ in RECURRENT_ARCHS:
-        cfg = get_config(arch, reduced=True)
-        model = Model(cfg, device)
-        params = model.init(torch.Generator(device=device).manual_seed(0))
-        toks = torch.zeros((1, 8), dtype=torch.int32, device=device)
-        batch = {"tokens": toks, "labels": toks,
-                 "mask": torch.ones((1, 8), device=device)}
-        try:
-            optim.loss_and_grads(model, params, batch)
-        except RuntimeError as exc:
-            if "no backward" not in str(exc):
-                raise
-            log(f"[train] {arch}: a loss on the card refuses: {exc}")
-            continue
-        raise AssertionError(f"{arch}: a loss on the card did not refuse")
+    for gname, g, w in zip(got[0], got[1], want):
+        if g is None or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name} grad {what}: {gname} missing or "
+                                 "not finite")
+        rel = float((g.double() - w.double()).norm()
+                    / w.double().norm().clamp_min(1e-30))
+        ok = rel <= rtol
+        log(f"[kernel] {name} {gname} {what}: rel_err={rel:.3g} "
+            f"max_abs_err={_max_err(g, w):.3g} (max |want| "
+            f"{float(w.abs().max()):.3g}) tol {rtol:g} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {gname} {what}: rel error {rel}")
 
 
-def train_reference_phase(device, cfg=None, B=TRAIN_REF_B, S=TRAIN_REF_S):
+def check_recurrent_grad(device):
+    """The RG-LRU scan's and the RWKV-6 WKV's ``autograd.Function`` on the
+    card against autograd through their plain versions, on the same
+    inputs (h0, s0 and u nonzero) and random upstream gradients on every
+    output: the scan's forward bit-equal, the WKV's within 2e-3 as in
+    phase 2; every input gradient (dh0, du and ds0 included) within
+    ``*_GRAD_RTOL``; the scan launches its kernel once in the forward and
+    once in the backward (the reversed scan), the WKV once (its backward
+    is torch ops)."""
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv_op
+    from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
+    cases = [("rglru_scan", ("da", "db", "dh0"), rglru_scan_op,
+              rglru_scan_ref, rglru_inputs(*shape, device, seed=7),
+              f"B={shape[0]} S={shape[1]} D={shape[2]}", 2, SCAN_GRAD_RTOL)
+             for shape in SCAN_GRAD_SHAPES]
+    cases += [("rwkv6_wkv", ("dr", "dk", "dv", "dlogw", "du", "ds0"),
+               rwkv6_wkv_op, rwkv6_wkv_ref,
+               wkv_inputs(*shape, device, seed=8),
+               f"B={shape[0]} H={shape[1]} S={shape[2]} K={shape[3]}", 1,
+               WKV_GRAD_RTOL) for shape in WKV_GRAD_SHAPES]
+    for name, gnames, op, ref, ins, what, n_launch, rtol in cases:
+        g = torch.Generator(device=device).manual_seed(9)
+        res = {}
+        for side, fn in (("op", op), ("plain", ref)):
+            leaves = [t.detach().clone().requires_grad_() for t in ins]
+            before = common.LAUNCHES[name]
+            out = fn(*leaves)
+            outs = out if isinstance(out, tuple) else (out,)
+            if side == "op":
+                ups = [torch.randn(o.shape, generator=g, device=device)
+                       for o in outs]
+            torch.autograd.backward(outs, ups)
+            res[side] = ([o.detach() for o in outs], [t.grad for t in leaves],
+                         common.LAUNCHES[name] - before)
+            del out, outs, leaves
+        (outs, grads, n), (want, wgrads, _) = res["op"], res["plain"]
+        if n != n_launch:
+            raise AssertionError(f"{name} grad {what}: {n} kernel launches "
+                                 f"a forward and backward, expected "
+                                 f"{n_launch}")
+        if name == "rglru_scan":
+            if not torch.equal(outs[0], want[0]):
+                raise AssertionError(f"{name} forward under grad {what}: "
+                                     "not bit-equal")
+            log(f"[kernel] {name} forward under grad {what}: bit-equal to "
+                f"the plain version; {n} launches (forward and the "
+                "reversed scan)")
+        else:
+            for o, w, part in zip(outs, want, ("o", "s_final")):
+                _expect_close(name, f"forward under grad {what} {part}", o,
+                              w, 2e-3, 2e-3)
+        _grad_agree(name, what, (gnames, grads), wgrads, rtol)
+        del res, outs, grads, want, wgrads, ins
+        torch.cuda.empty_cache()
+    profile_wkv_backward(device)
+
+
+def profile_wkv_backward(device, shape=(1, 64, 2048, 64)):
+    """One WKV backward at rwkv6's train shape (a layer of
+    ``TRAIN_FAMILIES``' rwkv6 cell) under torch.profiler: its device
+    kernels (the chunked form recomputed and differentiated in torch ops,
+    a loop over the chunks for the carried state) and their device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv_op
+    ins = [t.requires_grad_() for t in wkv_inputs(*shape, device, seed=8)]
+    for _ in range(2):                       # the first one warms up
+        outs = rwkv6_wkv_op(*ins)
+        ups = [torch.ones_like(o) for o in outs]
+        sync(device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            torch.autograd.backward(outs, ups)
+            sync(device)
+            wall = 1e3 * (time.perf_counter() - t)
+    rows = device_rows(prof)
+    log(f"[kernel] rwkv6_wkv backward at B={shape[0]} H={shape[1]} "
+        f"S={shape[2]} K={shape[3]} (one layer of the rwkv6 train cell): "
+        f"{sum(r[1] for r in rows)} device kernels, "
+        f"{sum(r[0] for r in rows) / 1e3:.2f} ms of device time, "
+        f"{wall:.1f} ms on the host clock")
+    del ins, outs, ups
+
+
+#: the step variants held card against CPU: (micro_steps, grad_compress)
+TRAIN_REF_VARIANTS = ((1, False), (2, False), (2, True))
+
+
+def train_reference_phase(device, cfg=None, B=TRAIN_REF_B, S=TRAIN_REF_S,
+                          variants=TRAIN_REF_VARIANTS):
     """``cfg`` (default: qwen at full width cut to 2 layers, fp32
-    compute): one train step on the card and the same on the CPU from the same params,
-    optimizer state and batch — plain, with ``micro_steps=2`` and with
-    ``micro_steps=2, grad_compress=True``: loss and grad_norm within
-    1e-4 relative; every parameter leaf gets a finite, nonzero gradient
-    on the card."""
+    compute): one train step on the card and the same on the CPU from
+    the same params, optimizer state and batch, for each of ``variants``
+    (plain, with ``micro_steps=2`` and with ``micro_steps=2,
+    grad_compress=True``): loss and grad_norm within 1e-4 relative; every
+    parameter leaf gets a finite, nonzero gradient on the card."""
     import torch
     from repro_torch import optim
     from repro_torch.bridge import batch_from_numpy
@@ -2590,8 +2755,10 @@ def train_reference_phase(device, cfg=None, B=TRAIN_REF_B, S=TRAIN_REF_S):
     cpu = torch.device("cpu")
     cfg = cfg or family_cfg(TRAIN_ARCH, TRAIN_REF_DEPTH,
                             compute_dtype="float32")
-    params = {cpu: Model(cfg, cpu).init(torch.Generator().manual_seed(0))}
-    params[device] = tree_map(lambda t: t.to(device), params[cpu])
+    # made on the card (a CPU generator takes seconds a billion draws)
+    params = {device: Model(cfg, device).init(
+        torch.Generator(device=device).manual_seed(0))}
+    params[cpu] = tree_map(lambda t: t.to(cpu), params[device])
     batch = pipeline_for(cfg, ShapeCell("train-ref", S, B, "train"),
                          seed=0).batch(0)
     t0 = time.perf_counter()
@@ -2601,15 +2768,14 @@ def train_reference_phase(device, cfg=None, B=TRAIN_REF_B, S=TRAIN_REF_S):
     bad = [p for p, g in flat if g is None
            or not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
     log(f"[train-ref] {cfg.name} at d_model {cfg.d_model}, {cfg.n_layers} "
-        f"layers, {cfg.compute_dtype}, B={B} S={S}: {len(flat)} parameter "
-        f"leaves, {len(flat) - len(bad)} with "
-        f"a finite nonzero gradient on {device.type} (wq/wk/wv and their "
-        "biases among them)")
+        f"layers {cfg.block_pattern}, {cfg.compute_dtype}, B={B} S={S}: "
+        f"{len(flat)} parameter leaves, {len(flat) - len(bad)} with a "
+        f"finite nonzero gradient on {device.type}")
     if bad:
         raise AssertionError(f"train-ref: leaves without a finite nonzero "
                              f"gradient: {bad}")
     del grads, flat
-    for ms, gc in ((1, False), (2, False), (2, True)):
+    for ms, gc in variants:
         opt = opt_config(cfg, TRAIN_STEPS, ms, gc)
         res = {}
         for dev in (device, cpu):
@@ -2621,7 +2787,8 @@ def train_reference_phase(device, cfg=None, B=TRAIN_REF_B, S=TRAIN_REF_S):
         rel = max(abs(l_dev - l_cpu) / abs(l_cpu),
                   abs(n_dev - n_cpu) / abs(n_cpu))
         ok = rel <= TRAIN_REF_RTOL
-        log(f"[train-ref] micro_steps={ms} grad_compress={gc}: loss "
+        log(f"[train-ref] {cfg.name} micro_steps={ms} grad_compress={gc}: "
+            f"loss "
             f"{l_dev!r} ({device.type}) vs {l_cpu!r} (cpu), grad_norm "
             f"{n_dev!r} vs {n_cpu!r}: rel {rel:.3g} tol {TRAIN_REF_RTOL:g} "
             f"{'ok' if ok else 'FAIL'}")
@@ -2630,32 +2797,43 @@ def train_reference_phase(device, cfg=None, B=TRAIN_REF_B, S=TRAIN_REF_S):
     log(f"[train-ref] took {time.perf_counter() - t0:.1f}s")
 
 
-def run_steps(run, params, state, batches, first, device, mgr=None):
-    """Train steps ``first..`` over ``batches`` (numpy) → (params, state,
-    losses, host ms a step, flash launches a step); ``mgr`` saves after
-    step RESUME_AT (its host copy is not in the step's time)."""
+def run_steps(run, trees, batches, first, device, mgr=None):
+    """Train steps ``first..`` over ``batches`` (numpy) from ``trees``
+    ([params, opt_state], emptied here: a step returns new trees, and the
+    caller's references would keep a third copy alive beside a step's
+    inputs and outputs) → (params, state, losses, host ms a step, each
+    step's kernel launches, grad norms); ``mgr`` saves after step
+    RESUME_AT (its host copy is not in the step's time)."""
     from repro_torch.bridge import batch_from_numpy
     from repro_torch.kernels import common
-    losses, ms, flash = [], [], []
+    params, state = trees
+    trees.clear()
+    losses, ms, counts, norms = [], [], [], []
     for step in range(first, len(batches)):
         batch = batch_from_numpy(batches[step], device)
         sync(device)
-        before = common.LAUNCHES["flash_attention"]
+        before = dict(common.LAUNCHES)
         t = time.perf_counter()
         params, state, m = run(params, state, batch)
         losses.append(float(m["loss"]))             # waits for the step
         ms.append(1e3 * (time.perf_counter() - t))
-        flash.append(common.LAUNCHES["flash_attention"] - before)
+        norms.append(float(m["grad_norm"]))
+        counts.append({k: n - before.get(k, 0)
+                       for k, n in common.LAUNCHES.items()
+                       if n - before.get(k, 0)})
         if mgr is not None and step == RESUME_AT:
             mgr.save(step, {"params": params, "opt": state})
-    return params, state, losses, ms, flash
+    return params, state, losses, ms, counts, norms
 
 
-def profile_train_step(run, params, state, batch, smi):
+def profile_train_step(run, params, state, batch, smi, node="_Flash",
+                       what="flash", label="train-profile"):
     """One train step under torch.profiler: the device's busy share of
-    the step, and the shares of its device time in flash's backward (the
-    plain attention recomputed and differentiated, the autograd node
-    ``_FlashBackward``) and in the flash kernel."""
+    the step, and the shares of its device time in the backward of the
+    autograd node ``node`` (flash: the plain attention recomputed and
+    differentiated; the WKV: its chunked form recomputed and
+    differentiated) and in the ``what`` kernel. → the node's share of the
+    device time and the kernel launches (device events) of the step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     sync(batch["tokens"].device)
@@ -2669,154 +2847,22 @@ def profile_train_step(run, params, state, batch, smi):
     busy = sum(r[0] for r in rows) / 1e3
     bwd = 0.0
     for e in prof.key_averages():
-        if "_FlashBackward" in e.key:
+        if f"{node}Backward" in e.key:
             dev = getattr(e, "device_time_total", None)
             bwd = max(bwd, (e.cuda_time_total if dev is None else dev) / 1e3)
-    fwd = sum(r[0] for r in rows if "flash" in r[2].lower()) / 1e3
-    log(f"[train-profile] {smi}: one step {wall:.1f} ms on the host clock, "
+    fwd = sum(r[0] for r in rows if what in r[2].lower()) / 1e3
+    events = sum(r[1] for r in rows)
+    log(f"[{label}] {smi}: one step {wall:.1f} ms on the host clock, "
         f"{busy:.1f} ms of device time (busy {100 * busy / wall:.1f}%, "
-        f"idle {100 * (1 - busy / wall):.1f}%); flash's backward (plain "
-        f"attention recomputed and differentiated) {bwd:.1f} ms = "
-        f"{100 * bwd / max(busy, 1e-9):.1f}% of the device time; the flash "
-        f"kernel (forward and remat recompute) {fwd:.1f} ms = "
+        f"idle {100 * (1 - busy / wall):.1f}%), {events} device events; "
+        f"{node}'s backward (recomputed and differentiated) {bwd:.1f} ms = "
+        f"{100 * bwd / max(busy, 1e-9):.1f}% of the device time; the "
+        f"{what} kernel (forward and remat recompute) {fwd:.1f} ms = "
         f"{100 * fwd / max(busy, 1e-9):.1f}%")
     for t_us, n, name in rows[:8]:
-        log(f"[train-profile]   {t_us / 1e3:9.2f} ms {n:5d}x {name[:90]}")
+        log(f"[{label}]   {t_us / 1e3:9.2f} ms {n:5d}x {name[:90]}")
     del out
-
-
-def train_phase(device, launches, smi, reduced=False, B=TRAIN_B, S=TRAIN_S,
-                steps=TRAIN_STEPS):
-    """``qwen1.5-0.5b`` at full width and depth (its own ``remat="full"``,
-    bf16 compute) trains ``steps`` steps of B x S tokens from
-    ``pipeline_for(cfg, cell, seed=0)``: the loss finite at every step,
-    lower at the last than at the first, and lower on step 0's batch
-    after the run than at step 0; 2 flash launches a layer a step
-    (forward and remat recompute); step p50, tokens/s, peak memory and
-    one profiled step. A checkpoint at step 5 (``CheckpointManager``,
-    async) is restored into fresh trees and run to step 10; the same
-    steps run through a VMM tenant's ``train`` program under ``hybrid``.
-    Resumed and virtualized losses agree with the native ones within
-    1e-5 relative (reported bitwise too)."""
-    import dataclasses
-    import shutil
-    import tempfile
-    import torch
-    from repro_torch import optim
-    from repro_torch.bridge import batch_from_numpy
-    from repro_torch.checkpointing import CheckpointManager
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeCell
-    from repro_torch.core import ProgramRequest
-    from repro_torch.data import pipeline_for
-    from repro_torch.kernels import common
-    from repro_torch.launch.serve import virtual_server
-    from repro_torch.launch.train import opt_config
-    from repro_torch.models import Model
-    from repro_torch.parallel import abstract_params, build_train
-    cfg = get_config(TRAIN_ARCH, reduced=reduced)
-    cell = ShapeCell("train", S, B, "train")
-    model = Model(cfg, device)
-    opt = opt_config(cfg, steps)
-    pipe = pipeline_for(cfg, cell, seed=0)
-    batches = [pipe.batch(s) for s in range(steps)]
-
-    def fresh():
-        params = model.init(torch.Generator(device=device).manual_seed(0))
-        return params, optim.init(opt, params)
-
-    run, _ = build_train(cfg, device, cell, opt)
-    ckpt = tempfile.mkdtemp(prefix="train_ckpt_")
-    mgr = CheckpointManager(ckpt, keep_n=1)
-    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"heads {cfg.n_heads}/{cfg.n_kv_heads} hd {cfg.d_head}, vocab "
-        f"{cfg.vocab} (padded {cfg.padded_vocab}), remat "
-        f"{cfg.sharding.remat!r}, params {cfg.param_dtype}, compute "
-        f"{cfg.compute_dtype}; B={B} S={S} ({B * S} tokens a step), "
-        f"{steps} steps; {shutil.disk_usage(ckpt).free / 2 ** 30:.0f} GiB "
-        "free for the checkpoint")
-    params, state = fresh()
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-    common.reset_launches()
-    params, state, losses, ms, flash = run_steps(run, params, state,
-                                                  batches, 0, device, mgr)
-    counts = dict(common.LAUNCHES)
-    mgr.wait()
-    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 \
-        if device.type == "cuda" else float("nan")
-    p50 = statistics.median(ms)
-    log(f"[train] losses {[round(x, 4) for x in losses]}; launches={counts}")
-    log(f"[time:train] {smi}: step p50 {p50:.1f} ms, "
-        f"{B * S / p50 * 1e3:.0f} tokens/s, peak memory {peak:.2f} GiB, "
-        f"flash launches a step {flash}; each step's ms (the async save "
-        f"after step {RESUME_AT} writes on a host thread meanwhile) "
-        f"{[round(t, 1) for t in ms]}")
-    if not all(x == x and abs(x) != float("inf") for x in losses):
-        raise AssertionError("train: a loss is not finite")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"train: loss did not fall ({losses[0]} -> "
-                             f"{losses[-1]})")
-    if device.type == "cuda" and set(flash) != {2 * cfg.n_layers}:
-        raise AssertionError(f"train: flash launches a step {flash}, "
-                             f"expected {2 * cfg.n_layers}")
-    count_path("train", counts, launches)
-    # most tokens of a new batch were never seen (V = 152064), so the
-    # step losses fall slowly; step 0's batch, seen once, shows the
-    # gradient at work
-    with torch.no_grad():
-        again = float(model.loss(params, batch_from_numpy(batches[0],
-                                                          device))[0])
-    log(f"[train] step 0's batch after {steps} steps: loss {again:.4f} "
-        f"(at step 0: {losses[0]:.4f})")
-    if not again < losses[0]:
-        raise AssertionError("train: step 0's batch did not get easier")
-    profile_train_step(run, params, state,
-                       batch_from_numpy(pipe.batch(steps), device), smi)
-    del params, state
-
-    # resume: the step-5 checkpoint into fresh trees, steps 6..10 again
-    t = time.perf_counter()
-    template = {"params": abstract_params(model)}
-    template["opt"] = optim.init(opt, template["params"])
-    saved, tree, _ = mgr.restore_latest(template, device=device)
-    mgr.close()
-    shutil.rmtree(ckpt, ignore_errors=True)
-    load_s = time.perf_counter() - t
-    _, _, resumed, _, _ = run_steps(run, tree["params"], tree["opt"],
-                                    batches[:RESUME_TO + 1], saved + 1,
-                                    device)
-    del tree
-    _agree("resume", f"steps {saved + 1}..{RESUME_TO} after restoring the "
-           f"step-{saved} checkpoint ({load_s:.1f}s to restore)", resumed,
-           losses[saved + 1:RESUME_TO + 1])
-
-    # the same steps through a VMM tenant's train program (hybrid)
-    vmm, tenant = virtual_server(device, "hybrid")
-    tenant.device.reprogram(ProgramRequest(
-        arch=cfg.name, kind="train", seq_len=S, global_batch=B,
-        reduced=reduced, opt_flags=tuple(dataclasses.asdict(opt).items())))
-    params, state = fresh()
-    common.reset_launches()
-    _, _, vlosses, vms, _ = run_steps(tenant.device.run, params, state,
-                                      batches, 0, device)
-    vcounts = dict(common.LAUNCHES)
-    del params, state
-    st = vmm.stats()
-    vmm.shutdown()
-    if st["scheduler"]["tenants"]["server"]["failed"]:
-        raise AssertionError("virtualized train: a failed run")
-    count_path("virtualized-train", vcounts, launches)
-    _agree("virtualized-train", "through the tenant's train program "
-           "(hybrid)", vlosses, losses)
-    vp50 = statistics.median(vms)
-    log(f"[time:virtualized-train] {smi}: step p50 {vp50:.1f} ms (native "
-        f"{p50:.1f} ms, ratio {vp50 / p50:.4f}); each step's ms "
-        f"{[round(t, 1) for t in vms]}; launches={vcounts}")
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    return {"step_p50_ms": p50, "virt_step_p50_ms": vp50,
-            "tokens_s": B * S / p50 * 1e3, "peak_gib": peak}
+    return bwd / max(busy, 1e-9), events
 
 
 def _agree(name, what, got, want):
@@ -2832,24 +2878,287 @@ def _agree(name, what, got, want):
         raise AssertionError(f"{name}: losses disagree with the native run")
 
 
+#: the families trained on the card: (arch, path name, layers kept (None:
+#: all), experts kept (None: all), B, S, steps). Full width; depth and
+#: experts cut only as far as one card's 80 GB forces. A step holds the
+#: parameters, their gradients, and the parameters and AdamW's m and v
+#: both before and after the update (the step returns new trees while its
+#: caller holds the old ones): 3p + 4s bytes a parameter (p, s: the bytes
+#: of the parameter and the state dtype; 28 in fp32, 14 for kimi's bf16),
+#: the update's fp32 temporaries kept to a block of rows
+#: (``optim.adamw.UPDATE_BLOCK``); B·S = 2048 tokens (whisper: 4 × 512
+#: over 4 × 1500 frames) keeps the logits' share (V up to 256000) to a
+#: few GB. ``train_bytes`` prints the reckoning beside the measured peak;
+#: the cuts keep it at or below ~65 GB (mixtral: 2 layers would be 88).
+#: qwen keeps its full depth and 12 steps of B=4.
+TRAIN_FAMILIES = (
+    (TRAIN_ARCH, "train", None, None, TRAIN_B, TRAIN_S, TRAIN_STEPS),
+    ("recurrentgemma-2b", "train-recurrentgemma", 12, None, 1, 2048, 4),
+    ("rwkv6-7b", "train-rwkv6", 8, None, 1, 2048, 4),
+    ("internlm2-1.8b", "train-internlm2", None, None, 1, 2048, 4),
+    ("phi3-mini-3.8b", "train-phi3", 18, None, 1, 2048, 4),
+    ("starcoder2-15b", "train-starcoder2", 4, None, 1, 2048, 4),
+    ("mixtral-8x7b", "train-mixtral", 1, None, 1, 2048, 4),
+    ("kimi-k2-1t-a32b", "train-kimi", 2, 16, 1, 2048, 4),
+    ("internvl2-2b", "train-internvl2", None, None, 1, 2048, 4),
+    ("whisper-medium", "train-whisper", None, None, 4, 512, 4))
+#: what a family's run adds to the gates every family passes: the same
+#: steps through a VMM tenant's train program (hybrid); one profiled step
+#: (the autograd node whose backward, and the kernel whose forward, it
+#: reports); the step-5 checkpoint restored and run to step 10; the last
+#: step's loss below the first (qwen's 12 steps of 8192 tokens only: a
+#: new batch's loss moves by more than 4 steps of 2048 tokens move it,
+#: ``tools/train_probe.py``)
+TRAIN_EXTRAS = {
+    "train": {"virtualized": True, "profile": ("_Flash", "flash"),
+              "resume": True, "falls": True},
+    "train-recurrentgemma": {"virtualized": True},
+    "train-rwkv6": {"virtualized": True, "profile": ("_Wkv", "wkv_chunk")}}
+#: the card-vs-CPU train step of the recurrent families: full width, 2
+#: layers, fp32, B=2 S=256, the plain step
+RECURRENT_TRAIN_REF_DEPTH = 2
+for _arch, _path, *_ in TRAIN_FAMILIES:
+    _kernels = {"recurrentgemma-2b": ("flash_attention", "rglru_scan"),
+                "rwkv6-7b": ("rwkv6_wkv",)}.get(_arch, ("flash_attention",))
+    PATH_KERNELS[_path] = PATH_KERNELS[f"virtualized-{_path}"] = _kernels
+
+
+def train_bytes(cfg):
+    """(parameters, the bytes a train step holds at its peak without
+    activations: 3p + 4s a parameter, see ``TRAIN_FAMILIES``)."""
+    import torch
+    n = cfg.param_counts()["total"]
+    p = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
+    s = torch.finfo(getattr(torch, cfg.opt_dtype)).bits // 8
+    return n, n * (3 * p + 4 * s)
+
+
+def train_launches(cfg):
+    """Kernel launches a train step makes, from the block pattern: each
+    layer's kernel in the forward and again in its remat recompute, and
+    the RG-LRU scan once more in its backward (the reversed scan)."""
+    from repro_torch.parallel.steps import STEP_KERNELS
+    passes = 1 if cfg.sharding.remat == "none" else 2
+    out = {}
+    for i in range(cfg.n_layers):
+        name = STEP_KERNELS["train"][cfg.layer_mixer(i)]
+        out[name] = out.get(name, 0) + passes + (name == "rglru_scan")
+    return out
+
+
+def family_train(device, launches, smi, arch, path, depth, n_experts, B, S,
+                 steps):
+    """``arch`` at full width (``depth`` layers, ``n_experts`` experts
+    when given), its own remat and dtypes, trains ``steps`` steps of
+    B x S tokens from ``pipeline_for(cfg, cell, seed=0)`` with the train
+    driver's AdamW (warmup 5, cosine). Every family's gates: every
+    parameter leaf a finite nonzero gradient on the first batch; the
+    losses finite; step 0's batch, evaluated again right after step 0
+    (the gradient descends) and after the last step (the run keeps what
+    it learned), below its loss at step 0; each step launches
+    ``train_launches(cfg)``. Step p50, tokens/s and peak memory print
+    beside the reckoning. ``TRAIN_EXTRAS[path]`` adds the rest: a VMM
+    tenant's ``train`` program (``hybrid``; the compile service builds
+    the cut config) with losses within 1e-5 relative of the native ones,
+    a profiled step, the checkpoint resume, the falling step losses."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import optim
+    from repro_torch.bridge import batch_from_numpy
+    from repro_torch.checkpointing import CheckpointManager
+    from repro_torch.checkpointing.checkpoint import flatten_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core import ProgramRequest
+    from repro_torch.core.reconfig import CompileService
+    from repro_torch.data import pipeline_for
+    from repro_torch.launch.serve import virtual_server
+    from repro_torch.launch.train import opt_config
+    from repro_torch.models import Model
+    from repro_torch.parallel import (abstract_params, build_step_for_cell,
+                                      build_train)
+    t0 = time.perf_counter()
+    extras = TRAIN_EXTRAS.get(path, {})
+    cfg = family_cfg(arch, depth, n_experts=n_experts)
+    full = get_config(arch)
+    model = Model(cfg, device)
+    opt = opt_config(cfg, steps)
+    cell = ShapeCell("train", S, B, "train")
+    pipe = pipeline_for(cfg, cell, seed=0)
+    batches = [pipe.batch(i) for i in range(steps)]
+    n_params, held = train_bytes(cfg)
+    cut = (f"{cfg.n_layers} of {full.n_layers} layers"
+           + (f", {cfg.moe.n_experts} of {full.moe.n_experts} experts "
+              f"top-{cfg.moe.top_k}" if n_experts else ""))
+
+    def fresh():
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        return params, optim.init(opt, params)
+
+    def first_batch_loss(params):
+        with torch.no_grad():
+            return float(model.loss(params, batch_from_numpy(batches[0],
+                                                             device))[0])
+
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    trees = list(fresh())
+    _, _, grads = optim.loss_and_grads(model, trees[0],
+                                       batch_from_numpy(batches[0], device))
+    flat = flatten_with_path(grads)
+    bad = [p for p, g in flat if not bool(torch.isfinite(g).all())
+           or not bool((g != 0).any())]
+    del grads, flat
+    if bad:
+        raise AssertionError(f"{path} {arch}: leaves without a finite "
+                             f"nonzero gradient: {bad}")
+    run, _ = build_train(cfg, device, cell, opt)
+    ckpt = mgr = None
+    if extras.get("resume"):
+        ckpt = tempfile.mkdtemp(prefix="train_ckpt_")
+        mgr = CheckpointManager(ckpt, keep_n=1)
+    # step 0 alone, then its batch again, then the other steps
+    params, state, losses, ms, per_step, norms = run_steps(
+        run, trees, batches[:1], 0, device, mgr)
+    after0 = first_batch_loss(params)
+    trees = [params, state]
+    del params, state
+    params, state, *more = run_steps(run, trees, batches, 1, device, mgr)
+    for acc, new in zip((losses, ms, per_step, norms), more):
+        acc.extend(new)
+    after = first_batch_loss(params)
+    counts = {}
+    for c in per_step:
+        for k, n in c.items():
+            counts[k] = counts.get(k, 0) + n
+    peak = torch.cuda.max_memory_allocated(device) / 1e9 if on_card \
+        else float("nan")
+    p50 = statistics.median(ms)
+    want = train_launches(cfg)
+    got = [{k: c.get(k, 0) for k in want} for c in per_step]
+    log(f"[{path}] {arch} at full width (d_model {cfg.d_model}), {cut}, "
+        f"remat {cfg.sharding.remat!r}, params {cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}; B={B} S={S}, {steps} steps: "
+        f"{n_params / 1e9:.3f} B parameters, reckoned {held / 1e9:.1f} GB "
+        f"held at the update without activations; every leaf a finite "
+        f"nonzero gradient; losses {[round(x, 4) for x in losses]}, grad "
+        f"norms {[round(x, 3) for x in norms]}; launches a step {got[0]} "
+        f"(expected {want}); launches over the steps {counts}")
+    log(f"[time:{path}] {smi}: step p50 {p50:.1f} ms, "
+        f"{B * S / p50 * 1e3:.0f} tokens/s, peak memory {peak:.2f} GB; each "
+        f"step's ms {[round(t, 1) for t in ms]}"
+        + (f" (the async save after step {RESUME_AT} writes on a host "
+           "thread meanwhile)" if mgr else ""))
+    log(f"[{path}] step 0's batch: loss {losses[0]:.4f} at step 0, "
+        f"{after0:.4f} right after it, {after:.4f} after step {steps - 1}; "
+        f"the last step's loss {losses[-1]:.4f}")
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise AssertionError(f"{path} {arch}: a loss is not finite")
+    if not after0 < losses[0]:
+        raise AssertionError(f"{path} {arch}: step 0 did not lower its "
+                             f"batch's loss ({losses[0]} -> {after0})")
+    if not after < losses[0]:
+        raise AssertionError(f"{path} {arch}: step 0's batch was not easier "
+                             f"after the run ({losses[0]} -> {after})")
+    if extras.get("falls") and not losses[-1] < losses[0]:
+        raise AssertionError(f"{path} {arch}: loss did not fall "
+                             f"({losses[0]} -> {losses[-1]})")
+    if on_card and any(g != want for g in got):
+        raise AssertionError(f"{path} {arch}: launches a step {got}, "
+                             f"expected {want}")
+    count_path(path, counts, launches)
+    out = {"arch": arch, "cut": cut, "B": B, "S": S, "step_p50_ms": p50,
+           "tokens_s": B * S / p50 * 1e3, "peak_gb": peak,
+           "reckoned_gb": held / 1e9}
+    if "profile" in extras:
+        node, what = extras["profile"]
+        out["bwd_share"], out["events"] = profile_train_step(
+            run, params, state, batch_from_numpy(pipe.batch(steps), device),
+            smi, node=node, what=what, label=f"{path}-profile")
+    del params, state
+    if on_card:
+        torch.cuda.empty_cache()
+    if mgr is not None:
+        # the step-5 checkpoint into fresh trees, steps 6..10 again
+        t = time.perf_counter()
+        template = {"params": abstract_params(model)}
+        template["opt"] = optim.init(opt, template["params"])
+        mgr.wait()
+        saved, tree, _ = mgr.restore_latest(template, device=device)
+        mgr.close()
+        shutil.rmtree(ckpt, ignore_errors=True)
+        load_s = time.perf_counter() - t
+        _, _, resumed, *_ = run_steps(run, [tree.pop("params"),
+                                            tree.pop("opt")],
+                                      batches[:RESUME_TO + 1], saved + 1,
+                                      device)
+        _agree(f"{path}-resume", f"steps {saved + 1}..{RESUME_TO} after "
+               f"restoring the step-{saved} checkpoint ({load_s:.1f}s to "
+               "restore)", resumed, losses[saved + 1:RESUME_TO + 1])
+    if extras.get("virtualized"):
+        vmm, tenant = virtual_server(device, "hybrid")
+        try:
+            if (depth, n_experts) != (None, None):
+                vmm.compiler = CompileService(
+                    lambda _cfg, dev, c, **kw: build_step_for_cell(
+                        cfg, dev, c, **kw))
+            tenant.device.reprogram(ProgramRequest(
+                arch=arch, kind="train", seq_len=S, global_batch=B,
+                reduced=False,
+                opt_flags=tuple(dataclasses.asdict(opt).items())))
+            _, _, vlosses, vms, vper, _ = run_steps(
+                tenant.device.run, list(fresh()), batches, 0, device)
+            st = vmm.stats()
+        finally:
+            vmm.shutdown()
+        if st["scheduler"]["tenants"]["server"]["failed"]:
+            raise AssertionError(f"virtualized-{path} {arch}: a failed run")
+        vcounts = {}
+        for c in vper:
+            for k, n in c.items():
+                vcounts[k] = vcounts.get(k, 0) + n
+        count_path(f"virtualized-{path}", vcounts, launches)
+        _agree(f"virtualized-{path}", "through the tenant's train program "
+               "(hybrid)", vlosses, losses)
+        out["virt_step_p50_ms"] = statistics.median(vms)
+        log(f"[time:virtualized-{path}] {smi}: step p50 "
+            f"{out['virt_step_p50_ms']:.1f} ms (native {p50:.1f} ms, ratio "
+            f"{out['virt_step_p50_ms'] / p50:.4f}); each step's ms "
+            f"{[round(t, 1) for t in vms]}; launches={vcounts}")
+        if on_card:
+            torch.cuda.empty_cache()
+    log(f"[{path}] took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def train_phases(device, launches, smi):
-    """Phase 12: flash's gradient, the card against the CPU, the
-    recurrent families' refusal, then the full-depth run with its resume
-    and VMM checks."""
+    """Phase 12: flash's and the recurrences' gradients, the card against
+    the CPU (qwen, and both recurrent families), then every family of
+    ``TRAIN_FAMILIES`` (:func:`family_train`)."""
     t0 = time.perf_counter()
     check_flash_grad(device)
-    check_train_refusals(device)
+    check_recurrent_grad(device)
     train_reference_phase(device)
-    r = train_phase(device, launches, smi)
+    for arch, _, _ in RECURRENT_ARCHS:
+        train_reference_phase(
+            device, family_cfg(arch, RECURRENT_TRAIN_REF_DEPTH,
+                               compute_dtype="float32"),
+            variants=TRAIN_REF_VARIANTS[:1])
+    out = [family_train(device, launches, smi, *row)
+           for row in TRAIN_FAMILIES]
     log(f"[train] phase took {time.perf_counter() - t0:.1f}s")
-    return r
+    return out
 
 
 # ---------------------------------------------------------------------------
 # phase 6: kernel times at the serving path's shapes
 # ---------------------------------------------------------------------------
 
-def time_kernels(device, launches):
+def time_kernels(device):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
@@ -2952,6 +3261,13 @@ def time_kernels(device, launches):
             **bnd}
     out.update(time_new_kernels(device))
     out.update(time_recurrent_kernels(device))
+    return out
+
+
+def log_times(out, launches):
+    """Print every timed kernel beside its launches on the paths, its
+    bound and its share of it; each row keeps its device ms for the
+    kernels JSON line."""
     for name, r in out.items():
         lib = r["library_ms"]
         ms = r["ms"][0]
@@ -2970,7 +3286,6 @@ def time_kernels(device, launches):
         for key in ("ms", "plain_ms", "library_ms"):
             if r[key] is not None:
                 r[key] = r[key][0]                 # the JSON line: device
-    return out
 
 
 def time_new_kernels(device):
@@ -3066,8 +3381,9 @@ def time_new_kernels(device):
 
 def time_recurrent_kernels(device):
     """Times of the recurrent kernels at the serving shapes (the JSON
-    rows) and at B=4, S=4096 (printed; their plain versions loop over
-    4096 tokens, so two calls are timed), the no-new-token paged decode
+    rows), at B=4, S=4096 and at the families' train shape, B=1 S=2048
+    (printed; their plain versions loop over the tokens, so two calls
+    are timed there), the no-new-token paged decode
     at the fused row's shapes, and flash / fused decode at
     recurrentgemma's hd=256, Hq/Hkv 10/1, window 2048, and at hd 96 and
     112 beside hd 128 (printed)."""
@@ -3086,7 +3402,8 @@ def time_recurrent_kernels(device):
     out = {}
     for name, (B, S, D) in (("rglru_scan", (1, 130, 2560)),
                             ("rglru_scan@S32", (1, 32, 2560)),
-                            ("rglru_scan@B4S4096", (4, 4096, 2560))):
+                            ("rglru_scan@B4S4096", (4, 4096, 2560)),
+                            ("rglru_scan@train", (1, 2048, 2560))):
         a, b, h0 = rglru_inputs(B, S, D, device, seed=1)
         n = B * S * D
         bnd = bound((2 * n + B * D) * 4 + n * 4, 2 * n, FP32_FLOPS)
@@ -3099,7 +3416,8 @@ def time_recurrent_kernels(device):
             "library_ms": None, **bnd}
     for name, (B, H, S, K) in (("rwkv6_wkv", (1, 64, 130, 64)),
                                ("rwkv6_wkv@S32", (1, 64, 32, 64)),
-                               ("rwkv6_wkv@B4S4096", (4, 64, 4096, 64))):
+                               ("rwkv6_wkv@B4S4096", (4, 64, 4096, 64)),
+                               ("rwkv6_wkv@train", (1, 64, 2048, 64))):
         ins = wkv_inputs(B, H, S, K, device, seed=2)
         n, st = B * H * S * K, B * H * K * K
         bnd = bound((4 * n + H * K + st) * 4 + (n + st) * 4,
@@ -3300,6 +3618,10 @@ def main():
     errs = {}
     check_kernels(device, errs)
     phase_done("kernels")
+    # timed before the serving phases: a trace taken after them often
+    # holds no device event and is taken again
+    times = time_kernels(device)
+    phase_done("times")
 
     weights = build_weights(device)
     phase_done("weights")
@@ -3334,8 +3656,9 @@ def main():
     phase_done("VMM programs and references")
     kv_hierarchy_phase(device, launches, weights)
     phase_done("kv-hierarchy")
-    mux_phase(device, launches, weights)
     weights.clear()
+    torch.cuda.empty_cache()
+    mux_phase(device, launches)
     torch.cuda.empty_cache()
     phase_done("mux")
     families_phase(device, launches, smi)
@@ -3366,8 +3689,7 @@ def main():
             del params, model
             torch.cuda.empty_cache()
 
-    times = time_kernels(device, launches)
-    phase_done("times")
+    log_times(times, launches)
     for mode, r in modes.items():
         log(f"[time:{mode}] ttft p50 {r['ttft_p50_ms']:.2f} ms, p95 "
             f"{r['ttft_p95_ms']:.2f} ms (queue wait p50 "
@@ -3384,11 +3706,16 @@ def main():
         log(f"[time:{short}-virtualized-chunked] {r['tok_s']:.1f} tok/s "
             f"over the run; engine step p50 {r['step_p50_ms']:.3f} ms "
             f"(native {nat:.3f} ms, ratio {r['step_p50_ms'] / nat:.3f})")
-    log(f"[time:train] {smi}: qwen1.5-0.5b, 24 layers, B={TRAIN_B} "
-        f"S={TRAIN_S}: step p50 {train['step_p50_ms']:.1f} ms, "
-        f"{train['tokens_s']:.0f} tokens/s, peak {train['peak_gib']:.2f} "
-        f"GiB; through the VMM {train['virt_step_p50_ms']:.1f} ms (ratio "
-        f"{train['virt_step_p50_ms'] / train['step_p50_ms']:.4f})")
+    for r in train:
+        log(f"[time:train] {smi}: {r['arch']} ({r['cut']}, B={r['B']} "
+            f"S={r['S']}): step p50 {r['step_p50_ms']:.1f} ms, "
+            f"{r['tokens_s']:.0f} tokens/s, peak {r['peak_gb']:.2f} GB "
+            f"(reckoned {r['reckoned_gb']:.1f} GB without activations)"
+            + (f"; through the VMM {r['virt_step_p50_ms']:.1f} ms (ratio "
+               f"{r['virt_step_p50_ms'] / r['step_p50_ms']:.4f})"
+               if "virt_step_p50_ms" in r else "")
+            + (f"; the profiled node's backward {100 * r['bwd_share']:.1f}% "
+               f"of the step's device time" if "bwd_share" in r else ""))
     for short, r in served_b4.items():
         micro = times[f"{r['kernel']}@B4S4096"]["ms"] \
             if f"{r['kernel']}@B4S4096" in times else None

@@ -240,8 +240,9 @@ def refuse_grad(name: str, device, *tensors):
     The kernels fill their outputs through ``ctypes``, so such an output
     carries no ``grad_fn``: the gradient would stop there without an
     error. The plain versions on the CPU are differentiable, so this
-    only guards the kernel path (flash attention has a backward and
-    never calls it)."""
+    only guards the kernel path (flash attention, the RG-LRU scan and the
+    RWKV-6 WKV have a backward, through their ``autograd.Function``, and
+    never call it)."""
     import torch
     if (torch.device(device).type == "cuda" and torch.is_grad_enabled()
             and any(t.requires_grad for t in tensors

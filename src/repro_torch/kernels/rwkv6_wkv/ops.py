@@ -6,11 +6,21 @@
 A CUDA tensor launches ``csrc/rwkv6_wkv.cu`` (the chunked form) on the
 current stream, one launch a call with no sequence padding; a CPU tensor
 runs :func:`rwkv6_wkv_ref`. :func:`wkv_split` picks how many CTAs share
-a head's state columns from static shapes and the SM count only."""
+a head's state columns from static shapes and the SM count only.
+
+Both devices go through one ``torch.autograd.Function``: its forward is
+the kernel (the plain version on the CPU) and saves the inputs; its
+backward recomputes the chunked form (:func:`wkv_chunked`, the
+reference's ``_wkv_chunk_scan``) under ``torch.enable_grad()`` and
+returns its vector-Jacobian product for r, k, v, logw, u and s0. The
+reference trains through XLA autodiff of that function and has no
+backward Pallas kernel, so neither has the port: the backward is torch
+ops, a loop over the chunks for the carried state only."""
 
 import torch
 
 from repro_torch.kernels import common
+from repro_torch.kernels.rwkv6_wkv.chunked import wkv_chunked
 from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
 
 NAME = "rwkv6_wkv"
@@ -40,9 +50,31 @@ def rwkv6_wkv_op(r, k, v, logw, u, s0):
             f"u must be {(H, K)} and s0 {(B, H, K, K)}")
     require(all(t.dtype == torch.float32 for t in (r, k, v, logw, u, s0)),
             "rwkv6_wkv takes fp32 inputs")
-    if common.on_cpu(r, k, v, logw, u, s0):
-        return rwkv6_wkv_ref(r, k, v, logw, u, s0)
-    common.refuse_grad(NAME, r.device, r, k, v, logw, u, s0)
+    return _Wkv.apply(r, k, v, logw, u, s0)
+
+
+class _Wkv(torch.autograd.Function):
+    """Forward: the kernel (plain version on the CPU), saving the inputs.
+    Backward: the chunked form recomputed and differentiated."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0):
+        ctx.save_for_backward(r, k, v, logw, u, s0)
+        if common.on_cpu(r, k, v, logw, u, s0):
+            return rwkv6_wkv_ref(r, k, v, logw, u, s0)
+        return _kernel(r, k, v, logw, u, s0)
+
+    @staticmethod
+    def backward(ctx, go, gs):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            o, s_fin = wkv_chunked(*ins)
+            return torch.autograd.grad((o, s_fin), ins, (go, gs))
+
+
+def _kernel(r, k, v, logw, u, s0):
+    require = common.require
+    B, H, S, K = r.shape
     require(K in HEAD_DIMS, f"kernel takes K in {HEAD_DIMS}, got {K}")
     require(B * H > 0 and S > 0, "empty WKV")
     common.check_contiguous(r=r, k=k, v=v, logw=logw, u=u, s0=s0)

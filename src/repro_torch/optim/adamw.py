@@ -80,6 +80,23 @@ def _decay_mask(path):
                    ("scale", "bias", "mu", "lam", "decay_base", "bonus"))
 
 
+#: elements of a leaf updated at once: a larger leaf (an embedding, an
+#: expert bank) is updated in blocks of rows, so the update's fp32
+#: temporaries (about seven copies of what is updated at once) stay
+#: within a few blocks' bytes; every op is elementwise, so the blocks give
+#: the whole leaf's bits
+UPDATE_BLOCK = 1 << 24
+
+
+def _row_blocks(p):
+    """Row slices of ``p`` of at most ``UPDATE_BLOCK`` elements (one
+    block: the whole leaf)."""
+    if p.dim() == 0 or p.numel() <= UPDATE_BLOCK:
+        return None
+    rows = max(1, UPDATE_BLOCK // (p.numel() // p.shape[0]))
+    return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
+
+
 @torch.no_grad()
 def update(opt: OptConfig, grads, state, params):
     """One AdamW step → (new_params, new_state, {"lr", "grad_norm"});
@@ -94,19 +111,39 @@ def update(opt: OptConfig, grads, state, params):
     bc1 = 1.0 - b1 ** stepf
     bc2 = 1.0 - b2 ** stepf
     sdt = getattr(torch, opt.state_dtype)
+
+    def one(g, m, v, p, decay):
+        # m = b1·m + (1 - b1)·g, v = b2·v + (1 - b2)·g², upd = m̂ / (√v̂ +
+        # eps) (+ wd·p), p - lr·upd: the same operations in the same
+        # order, each into a buffer the update owns (fewer allocations)
+        g32 = g.float() * scale
+        m32 = m.float() * b1
+        m32.add_(g32 * (1 - b1))
+        v32 = v.float() * b2
+        v32.add_(g32.square_().mul_(1 - b2))
+        upd = torch.div(m32, bc1).div_(torch.div(v32, bc2).sqrt_()
+                                        .add_(opt.eps))
+        if decay:
+            upd.add_(p.float() * opt.weight_decay)
+        return (torch.sub(p.float(), upd.mul_(lr)).to(p.dtype),
+                m32.to(sdt), v32.to(sdt))
+
     new_p, new_m, new_v = {}, {}, {}
     for (path, g), m, v, p in zip(flatten_with_path(grads),
                                   leaves(state["m"]), leaves(state["v"]),
                                   leaves(params)):
-        g32 = g.float() * scale
-        m32 = b1 * m.float() + (1 - b1) * g32
-        v32 = b2 * v.float() + (1 - b2) * g32.square()
-        upd = (m32 / bc1) / (torch.sqrt(v32 / bc2) + opt.eps)
-        if opt.weight_decay and _decay_mask(path):
-            upd = upd + opt.weight_decay * p.float()
-        new_p[path] = (p.float() - lr * upd).to(p.dtype)
-        new_m[path] = m32.to(sdt)
-        new_v[path] = v32.to(sdt)
+        decay = bool(opt.weight_decay) and _decay_mask(path)
+        blocks = _row_blocks(p)
+        if blocks is None:
+            new_p[path], new_m[path], new_v[path] = one(g, m, v, p, decay)
+            continue
+        outs = (torch.empty_like(p), torch.empty_like(m, dtype=sdt),
+                torch.empty_like(v, dtype=sdt))
+        for rows in blocks:
+            for out, block in zip(outs, one(g[rows], m[rows], v[rows],
+                                            p[rows], decay)):
+                out[rows] = block
+        new_p[path], new_m[path], new_v[path] = outs
     out_params = unflatten(params, new_p)
     new_state = {"m": unflatten(params, new_m),
                  "v": unflatten(params, new_v), "step": step}

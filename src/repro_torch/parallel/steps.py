@@ -21,11 +21,12 @@ from repro_torch.models import Model
 
 #: the CUDA kernels a step kind launches for each mixer of the stack
 #: (built and loaded at compile); rwkv's one-token step is plain PyTorch.
-#: A train step launches flash in the forward (and again in each
-#: rematerialised layer's recompute); the recurrences' kernels have no
-#: backward in the port and refuse to run under a gradient.
+#: A train step launches each kernel in the forward and again in each
+#: rematerialised layer's recompute; the scan's backward is one more
+#: launch of the scan (the WKV's and flash's backwards are torch ops).
 STEP_KERNELS = {"train": {"attn": "flash_attention",
-                          "swa": "flash_attention"},
+                          "swa": "flash_attention",
+                          "rglru": "rglru_scan", "rwkv": "rwkv6_wkv"},
                 "prefill": {"attn": "flash_attention",
                             "swa": "flash_attention",
                             "rglru": "rglru_scan", "rwkv": "rwkv6_wkv"},

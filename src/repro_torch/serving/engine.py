@@ -82,6 +82,13 @@ class Request:
     out_tokens: list = field(default_factory=list)
     done: bool = False
 
+    def context(self) -> np.ndarray:
+        """Prompt plus everything generated so far."""
+        if not self.out_tokens:
+            return self.prompt
+        return np.concatenate(
+            [self.prompt, np.asarray(self.out_tokens, np.int32)])
+
 
 @dataclass
 class EngineStats:

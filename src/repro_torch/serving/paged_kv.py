@@ -102,8 +102,13 @@ class PagedKVCache:
         # (_with_evict) when the pool runs dry
         self.prefix = PrefixCache(pool, page_size) if share_prefix else None
         self.swap_tier = HostSwapTier(obs=obs) if swap else None
-        # monotonic: forks fire inside ensure(), the engine takes deltas
+        # monotonic hierarchy counters (kv_stats); forks fire inside
+        # ensure(), the engine takes deltas
+        self.prefix_hits = 0
+        self.shared_tokens_total = 0
         self.cow_forks = 0
+        self.swap_outs = 0
+        self.swap_ins = 0
 
     # ------------------------------------------------------------------
     # Leasing (slot ↔ MMU page table)
@@ -145,8 +150,11 @@ class PagedKVCache:
         self.owners[slot] = owner
         self._bt[slot, :] = 0
         self._bt[slot, :table.n_pages] = table.pages
-        if shared and self.obs is not None and self.obs.enabled:
-            self.obs.count("kv_shared_pages_total", len(shared_frames))
+        if shared:
+            self.prefix_hits += 1
+            self.shared_tokens_total += shared
+            if self.obs is not None and self.obs.enabled:
+                self.obs.count("kv_shared_pages_total", len(shared_frames))
         return shared
 
     def _with_evict(self, fn):
@@ -252,6 +260,7 @@ class PagedKVCache:
             dev = self.swap_tier.load(payload, self.model.device)
             self.state = self.model.write_kv_page(self.state, new, dev)
         self._bt[slot, blk] = new
+        self.swap_ins += 1
         if self.obs is not None and self.obs.enabled:
             self.obs.count("kv_refaults_total")
             self.obs.observe("kv_refault_s", time.perf_counter() - t0)
@@ -274,6 +283,7 @@ class PagedKVCache:
             self.pool.swap_out_page(table.handle, self.owners[slot], blk)
             self._bt[slot, blk] = 0
             moved += 1
+        self.swap_outs += moved
         if moved and self.obs is not None and self.obs.enabled:
             self.obs.count("kv_swapped_pages_total", moved)
             self.obs.observe("kv_swap_out_s", time.perf_counter() - t0)
@@ -313,6 +323,17 @@ class PagedKVCache:
     # ------------------------------------------------------------------
     # Isolation / introspection
     # ------------------------------------------------------------------
+    def translate(self, slot: int, logical: int, owner: str) -> int:
+        """Ownership-checked logical block → physical byte address; a
+        cross-slot access raises IsolationViolation through the MMU."""
+        return self.pool.translate_page(self.tables[slot].handle, owner,
+                                        logical)
+
+    def live_pages(self) -> dict:
+        """slot → list of physical pages (property-test surface)."""
+        return {i: list(t.pages) for i, t in enumerate(self.tables)
+                if t is not None}
+
     def no_double_mapping(self) -> bool:
         """Every multiply mapped frame carries an MMU refcount at least
         as large as its mapping count — sharing is legal only when the
@@ -334,3 +355,19 @@ class PagedKVCache:
 
     def memory_stats(self) -> dict:
         return self.pool.memory_stats()
+
+    def kv_stats(self) -> dict:
+        """Hierarchy counters and the sub-tiers' stats (benchmark
+        surface)."""
+        out = {
+            "prefix_hits": self.prefix_hits,
+            "shared_tokens_total": self.shared_tokens_total,
+            "cow_forks": self.cow_forks,
+            "swap_outs": self.swap_outs,
+            "swap_ins": self.swap_ins,
+        }
+        if self.prefix is not None:
+            out["prefix_cache"] = self.prefix.stats()
+        if self.swap_tier is not None:
+            out["swap_tier"] = self.swap_tier.stats()
+        return out

@@ -210,6 +210,12 @@ def _calls(fn):
             for c in ast.walk(fn) if isinstance(c, ast.Call)]
 
 
+#: the kernels whose op goes through an ``autograd.Function``: sub → op
+FUNCTION_OPS = {"flash_attention": "flash_attention_op",
+                "rglru_scan": "rglru_scan_op",
+                "rwkv6_wkv": "rwkv6_wkv_op"}
+
+
 def _kernel_ops():
     base = os.path.join(ROOT, "src", "repro_torch", "kernels")
     for sub in sorted(os.listdir(base)):
@@ -223,14 +229,23 @@ def _kernel_ops():
                          ids=[f"{s}.{n}" for s, n in _kernel_ops()])
 def test_every_kernel_launch_is_guarded_or_differentiable(sub, name):
     """Every function that launches a kernel refuses a gradient first
-    (``common.refuse_grad``), but flash's, whose op goes through its
-    ``autograd.Function`` (forward: the kernel; backward: the plain
-    recompute) and whose launch only that forward calls."""
+    (``common.refuse_grad``), but those of flash, the RG-LRU scan and the
+    RWKV-6 WKV, whose ops go through their ``autograd.Function`` and whose
+    launch only that Function reaches: flash's and the WKV's from the
+    forward (their backward is a plain recompute), the scan's from the
+    forward and the backward (the reversed scan) through one dispatch."""
     fns = _functions(sub)
-    if sub == "flash_attention":
+    if sub in FUNCTION_OPS:
         assert name == "_kernel"
-        assert "apply" in _calls(fns["flash_attention_op"])
-        callers = [n for n, fn in fns.items() if "_kernel" in _calls(fn)]
-        assert callers == ["forward"]
+        assert "apply" in _calls(fns[FUNCTION_OPS[sub]])
+        callers, frontier = set(), {"_kernel"}
+        while frontier:
+            new = {n for n, fn in fns.items()
+                   if frontier & set(_calls(fn))} - callers
+            callers |= new
+            frontier = new
+        assert callers <= {"forward", "backward", "_scan"}, callers
+        assert "forward" in callers
+        assert FUNCTION_OPS[sub] not in callers
         return
     assert "refuse_grad" in _calls(fns[name]), name
