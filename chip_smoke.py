@@ -163,7 +163,32 @@ Phases, each printing its lines and raising on any failure:
    window 2048; fused decode also
    at a long
    context (nb=160, lengths up to 2560) at hd 64 16/16 and hd 256 10/1
-   with window 2048.
+   with window 2048;
+15. elastic-mux (after the apps) — ``examples/torch_multi_tenant_serving.py``
+   at full width under ``wfq`` and ``slo``: alice's qwen1.5-0.5b and
+   bob's internlm2-1.8b decode programs on (1, 4) slices of a 2×4 view
+   of the card (each pool 4/8 of its free memory), 6 tokens each through
+   ``run``/``run_async``, logits bitwise equal to the same program run
+   natively; the cross-slice attack refused and audited; one warm hit;
+   every submitted op completed; slo attainment;
+16. elastic-failover — ``examples/torch_elastic_failover.py``:
+   internlm2-1.8b at full width cut to 2 of 24 layers, B=4 S=256, 6
+   steps through a tenant's train program, checkpoint (~6 GB), slice
+   failure, migration, 6 steps, the grow to (2, 4) (pool 4/8 → 8/8), 6
+   steps; steps 6-17 bitwise equal to an uninterrupted run; checkpoint,
+   restore and migrate seconds;
+17. autoscaler — a real queue_buildup IRQ grows a full-width qwen decode
+   tenant (1, 1) → (1, 2) on a 2×4 view (slo, watermark 4); a calm
+   shrink; three fillers fragment the grid and the next grow
+   defragments to (1, 4); every decode step bitwise equal to native at
+   the same positions; the IRQ → grow latency;
+18. long-context — qwen1.5-0.5b at full depth, a 16368-token prompt in
+   512-token chunks over page rows of 16384 (the chunked online
+   softmax), recurrentgemma-2b with a 4096-token prompt (its swa layers
+   banded), 16 decode steps each; one layer's long path against the
+   dense formula (fp32 1e-5, bf16 2e-2), every chunk call on its route,
+   the peak memory of one chunk call (long path against dense) and of
+   the prefill, the prefill's host seconds.
 
 On every path, the launch counters are set to 0 just before it runs and
 read just after; each kernel of the path must have launched.
@@ -185,6 +210,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -263,7 +289,14 @@ PATH_KERNELS = {"monolithic": ("flash_attention", "fused_paged_decode"),
                                             "fused_paged_decode",
                                             "sample_tokens"),
                 "mux": ("rglru_scan", "rwkv6_wkv", "fused_paged_decode",
-                        "sample_tokens")}
+                        "sample_tokens"),
+                "elastic-mux": ("decode_attention",),
+                "elastic-failover": ("flash_attention",),
+                "autoscaler": ("decode_attention",),
+                "long-context-qwen": ("fused_paged_decode", "sample_tokens"),
+                "long-context-recurrentgemma": ("rglru_scan",
+                                                "fused_paged_decode",
+                                                "sample_tokens")}
 #: the recurrent families served at full width: arch, path name, and the
 #: depth of the card-vs-CPU reference (one block period)
 RECURRENT_ARCHS = (("recurrentgemma-2b", "recurrentgemma", 3),
@@ -293,8 +326,9 @@ def device_ms(fn, reps=50, warmup=5):
     # counts as its mean recorded duration times its launches per call,
     # and a trace with no device event is taken again
     for _ in range(5):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # device activity only: the host ops' events are not read, and
+        # they would multiply the events the trace has to sort
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -327,12 +361,14 @@ def batch_event_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def device_rows(prof):
+def device_rows(prof, averages=None):
     """Device-side events of a profile (kernels, copies) as
-    (total µs, count, name), largest first."""
+    (total µs, count, name), largest first; ``averages`` the profile's
+    ``key_averages()`` when the caller has them (each call aggregates
+    every event of the trace again)."""
     import torch
     rows = []
-    for e in prof.key_averages():
+    for e in averages if averages is not None else prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dev = getattr(e, "self_device_time_total", None)
             rows.append((e.self_cuda_time_total if dev is None else dev,
@@ -1619,6 +1655,469 @@ def apps_phase(device, launches):
     return out
 
 
+# ---------------------------------------------------------------------------
+# elastic virtualization on one card, and the long-context attention paths
+# ---------------------------------------------------------------------------
+
+#: a one-card view that the elastic phases slice: 2×4 entries, each 1/8
+#: of the card's free memory
+VIEW = (2, 4)
+#: a pool's share of the card against k/8 of it (segment rounding)
+SHARE_TOL = 1e-3
+
+
+def example(name):
+    """One of ``examples/<name>.py``, imported from the checkout."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _share(name, what, share, k):
+    if abs(share - k / 8) > SHARE_TOL:
+        raise AssertionError(f"{name}: {what} holds {share:.5f} of the "
+                             f"card's memory, not {k}/8")
+
+
+def elastic_mux_phase(device, launches, smi):
+    """``examples/torch_multi_tenant_serving.py`` at full width under
+    ``wfq`` and ``slo``: alice (qwen1.5-0.5b) and bob (internlm2-1.8b)
+    decode programs on (1, 4) slices of a 2×4 view of the card, 6 tokens
+    each through ``run``/``run_async``. Gates: each tenant's logits equal
+    the same program run natively bit for bit; the cross-slice attack
+    raises LegalityError and is audited; one warm hit; the scheduler
+    completes every submitted op; each pool holds 4/8 of the card's free
+    memory; under ``slo`` attainment is reported; the ring decode kernel
+    launches on every decode step of every layer."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    ex = example("torch_multi_tenant_serving")
+    t0 = time.perf_counter()
+    for policy in ("wfq", "slo"):
+        torch.cuda.empty_cache()
+        common.reset_launches()
+        out = ex.main(["--device", "cuda", "--full", "--policy", policy])
+        counts = dict(common.LAUNCHES)
+        path = "elastic-mux"
+        for name, t in out["tenants"].items():
+            sched = out["sched"][name]
+            log(f"[{path}] {smi}: {policy} {name} ({t['arch']}): pool "
+                f"{t['pool_bytes']} bytes = {t['share']:.5f} of the card's "
+                f"free memory; logits equal native bitwise: "
+                f"{t['native_equal']}; completed {sched['completed']} of "
+                f"{t['ops']} ops, failed {sched['failed']}"
+                + (f"; slo attainment {sched['slo_attainment']:.3f}, p95 "
+                   f"wait {sched['p95_wait_ms']:.2f} ms"
+                   if "slo_attainment" in sched else ""))
+            if not (t["native_equal"] and t["finite"]):
+                raise AssertionError(f"{path} {policy} {name}: logits differ "
+                                     "from the native program's")
+            if sched["completed"] != t["ops"] or sched["failed"]:
+                raise AssertionError(f"{path} {policy} {name}: scheduler "
+                                     f"completed {sched['completed']}")
+            if policy == "slo" and "slo_attainment" not in sched:
+                raise AssertionError(f"{path}: no slo attainment")
+            _share(f"{path} {name}", "the pool", t["share"], 4)
+        log(f"[{path}] {policy}: attack denied {out['attack_denied']}, "
+            f"violations {out['violations']}; compile hits {out['hits']} "
+            f"misses {out['misses']}; launches={counts}")
+        if not out["attack_denied"] or \
+                out["violations"].get("cross_slice_reprogram") != 1:
+            raise AssertionError(f"{path}: the cross-slice attack was not "
+                                 "denied and audited")
+        if out["hits"] != 1:
+            raise AssertionError(f"{path}: compile hits {out['hits']}")
+        layers = sum(get_config(t["arch"]).n_layers
+                     for t in out["tenants"].values())
+        # each tenant's 6 steps and the native run's 6
+        if counts.get("decode_attention", 0) != 2 * ex.TOKENS * layers:
+            raise AssertionError(f"{path}: decode_attention launched "
+                                 f"{counts.get('decode_attention', 0)} "
+                                 f"times, want {2 * ex.TOKENS * layers}")
+        count_path(path, counts, launches)
+    log(f"[{path}] took {time.perf_counter() - t0:.1f}s")
+
+
+#: the failover's cut: internlm2-1.8b at full width, 2 of 24 layers,
+#: B=4 S=256 (~0.5 B parameters: ~6 GB of fp32 parameters and AdamW's
+#: m and v a checkpoint)
+FAILOVER_ARGS = ("--full", "--depth", "2", "--batch", "4", "--seq", "256")
+
+
+def elastic_failover_phase(device, launches, smi):
+    """``examples/torch_elastic_failover.py`` on the card, cut as
+    ``FAILOVER_ARGS`` says: 6 steps through a tenant's train program on a
+    (1, 4) slice of a 2×4 view, checkpoint, slice failure, migration to
+    a fresh (1, 4) slice, 6 steps, the grow to (2, 4), 6 steps. Gates:
+    18 finite losses; steps 6-11 and 12-17 equal, bitwise, the same
+    steps of an uninterrupted native run; the pool goes from 4/8 to 8/8
+    of the card's free memory; flash launches on every step."""
+    import torch
+    from repro_torch.kernels import common
+    ex = example("torch_elastic_failover")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    common.reset_launches()
+    out = ex.main(["--device", "cuda", *FAILOVER_ARGS])
+    counts = dict(common.LAUNCHES)
+    path = "elastic-failover"
+    losses, ref = out["losses"], out["uninterrupted"]
+    n = 3 * ex.PHASE_STEPS
+    cfg = ex.train_config(True, int(FAILOVER_ARGS[2]))
+    want = 2 * n * train_launches(cfg)["flash_attention"]
+    log(f"[{path}] {smi}: {ex.ARCH} {cfg.n_layers} layers at full width, "
+        f"{FAILOVER_ARGS}: losses {[round(x, 4) for x in losses]}; events "
+        f"{out['events']}; checkpoint {out['checkpoint_bytes']} bytes in "
+        f"{out['checkpoint_s']:.2f}s; migrate {out['migrate_s']:.2f}s "
+        f"(restore {out['restore_s']:.2f}s); grow {out['resize_s']:.2f}s; "
+        f"pool {out['pool_before']} -> {out['pool_after']} bytes "
+        f"({out['share_before']:.5f} -> {out['share_after']:.5f} of the "
+        f"card's free memory); slice {out['slice']}; launches={counts}")
+    if len(losses) != n or not all(x == x and abs(x) != float("inf")
+                                   for x in losses):
+        raise AssertionError(f"{path}: losses {losses}")
+    for first, what in ((6, "after the migration"), (12, "after the grow")):
+        same = losses[first:first + 6] == ref[first:first + 6]
+        log(f"[{path}] steps {first}..{first + 5} {what} equal the "
+            f"uninterrupted run bitwise: {same}")
+        if not same:
+            raise AssertionError(f"{path}: steps {what} differ from the "
+                                 f"uninterrupted run: {losses} vs {ref}")
+    _share(path, "the (1, 4) pool", out["share_before"], 4)
+    _share(path, "the (2, 4) pool", out["share_after"], 8)
+    if "slice_failed" not in out["events"]:
+        raise AssertionError(f"{path}: no slice_failed IRQ")
+    if counts.get("flash_attention", 0) != want:
+        raise AssertionError(f"{path}: flash launched "
+                             f"{counts.get('flash_attention', 0)}, want "
+                             f"{want}")
+    count_path(path, counts, launches)
+    torch.cuda.empty_cache()
+    log(f"[{path}] took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def autoscaler_phase(device, launches, smi, B=4, C=256):
+    """A real queue_buildup IRQ grows a serving tenant: qwen1.5-0.5b's
+    decode program at full width on a (1, 1) slice of a 2×4 view of the
+    card, ``slo`` with a high watermark of 4, its ring caches the
+    tenant's state. Floods of ``run_async`` decode steps (teacher-forced
+    tokens) behind a held op raise the IRQs; ``poll`` grows the slice to
+    (1, 2) (pool 1/8 → 2/8, program re-bound, caches checkpointed and
+    restored); a calm period shrinks it back; a grow to (1, 2) again in
+    row 1; three (1, 1) fillers fragment row 0 so that neither (1, 4)
+    nor (2, 2) fits; the next flood's grow defragments and takes (1, 4).
+    Gates: every step's logits equal a native decode at the same
+    positions bitwise; the shapes, shares and re-binding above;
+    ``VMM.stats()["autoscaler"]`` holds grow, shrink, grow, grow
+    (defragmented)."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core import VMM, Autoscaler, ProgramRequest
+    from repro_torch.core.scheduler import IRQ_DEGRADED
+    from repro_torch.kernels import common
+    from repro_torch.models import Model
+    from repro_torch.parallel import build_decode
+    arch, path = "qwen1.5-0.5b", "autoscaler"
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab, (64, B, 1), generator=gen,
+                           device=device, dtype=torch.int32)
+    model = Model(cfg, device)
+    grid = np.empty(VIEW, dtype=object)
+    grid[:] = device
+    common.reset_launches()
+    vmm = VMM(grid, policy="slo", hbm_per_chip=None if device.type == "cuda"
+              else 1 << 30,
+              scheduler_opts={"queue_high_watermark": 4,
+                              "queue_buildup_s": 0.02,
+                              "queue_irq_cooldown_s": 0.01})
+    got, timing = [], {}
+    try:
+        t = vmm.create_vm("server", (1, 1))
+        prog = t.device.reprogram(ProgramRequest(arch, "decode", C, B,
+                                                 reduced=False))
+        params = as_program_params(
+            prog.bitfile.abstract_args[0], model.init_compute_params(
+                torch.Generator(device=device).manual_seed(10)))
+        template = {"caches": Model(cfg, device="meta").init_cache(B, C)}
+        t.state = {"caches": model.init_cache(B, C)}
+        irqs = []
+        t.cq.set_irq(IRQ_DEGRADED, lambda ev: irqs.append(
+            (time.perf_counter(), ev.kind)))
+        scaler = Autoscaler(vmm, sustain=2, window_s=30.0, cooldown_s=0.0,
+                            calm_s=0.5)
+        scaler.watch(t, state_template=template)
+
+        def step(pos):
+            return t.device.run(params, t.state["caches"], tokens[pos],
+                                torch.tensor(pos, dtype=torch.int32,
+                                             device=device))[0]
+
+        def flood(n=11):
+            """A held op, then n decode steps queued behind it past the
+            watermark for longer than the buildup time."""
+            gate = threading.Event()
+            held = vmm.plane.submit(t, "run", gate.wait, {})
+            time.sleep(0.02)
+            caches = t.state["caches"]
+            futs = []
+            for i in range(n):
+                pos = len(got) + i
+                futs.append(t.device.run_async(
+                    params, caches, tokens[pos],
+                    torch.tensor(pos, dtype=torch.int32, device=device)))
+                if i >= 7:
+                    time.sleep(0.03)
+            gate.set()
+            held.result(timeout=60)
+            got.extend(f.result(timeout=600)[0] for f in futs)
+
+        def poll(want, what, k):
+            sync(device)
+            whole = vmm.card_bytes(device)
+            t1 = time.perf_counter()
+            acts = scaler.poll()
+            t2 = time.perf_counter()
+            names = [a["action"] for a in acts]
+            share = t.pool.n_segments * t.pool.segment_bytes / whole
+            last_irq = max((ti for ti, kind in irqs
+                            if kind == "queue_buildup"), default=None)
+            log(f"[{path}] {what}: actions {acts}; slice "
+                f"{t.vslice.spec.shape} at {t.vslice.spec.origin}, pool "
+                f"{share:.5f} of the card's free memory; poll {t2 - t1:.3f}s"
+                + (f", last queue_buildup IRQ -> {want} done "
+                   f"{t2 - last_irq:.3f}s" if want == "grow" and last_irq
+                   else ""))
+            if names != [want]:
+                raise AssertionError(f"{path}: {what}: {names}")
+            if t.vslice.spec.shape != (1, k):
+                raise AssertionError(f"{path}: {what}: slice "
+                                     f"{t.vslice.spec.shape}")
+            if t.program.bitfile.slice_fingerprint != t.vslice.fingerprint:
+                raise AssertionError(f"{path}: program not re-bound")
+            _share(path, what, share, k)
+            timing.setdefault(want, []).append(t2 - t1)
+            irqs.clear()
+            return acts[0]
+
+        flood()
+        poll("grow", "flood 1 -> grow to (1, 2)", 2)
+        got.extend(step(len(got)) for _ in range(2))
+        time.sleep(0.6)
+        poll("shrink", "calm -> shrink to (1, 1)", 1)
+        got.extend(step(len(got)) for _ in range(2))
+        # row 0 held at (0,1), (0,2), (0,3): the next (1, 2) goes to row 1
+        p1 = vmm.create_vm("p1", (1, 1))
+        vmm.create_vm("f2", (1, 1))
+        p2 = vmm.create_vm("p2", (1, 1))
+        flood()
+        poll("grow", "flood 2 -> grow to (1, 2) in row 1", 2)
+        vmm.create_vm("f1", (1, 1))
+        p4 = vmm.create_vm("p4", (1, 1))
+        vmm.create_vm("f3", (1, 1))
+        for p in (p1, p2, p4):
+            vmm.destroy_vm(p.name)
+        log(f"[{path}] fragmented: {vmm.floorplanner.snapshot()}, "
+            f"fragmentation {vmm.floorplanner.fragmentation():.3f}")
+        flood()
+        act = poll("grow", "flood 3 -> defragment, grow to (1, 4)", 4)
+        if not act.get("defragmented"):
+            raise AssertionError(f"{path}: the last grow did not defragment")
+        got.extend(step(len(got)) for _ in range(2))
+        sync(device)
+        counts = dict(common.LAUNCHES)
+        st = vmm.stats()["autoscaler"]
+    finally:
+        vmm.shutdown()
+    actions = [(a["action"], a.get("defragmented", False))
+               for a in st["actions"]]
+    log(f"[{path}] VMM.stats()['autoscaler'] actions {actions}; watched "
+        f"{st['watched']}")
+    if actions != [("grow", False), ("shrink", False), ("grow", False),
+                   ("grow", True)]:
+        raise AssertionError(f"{path}: actions {actions}")
+    # the same positions natively, teacher-forced, on a fresh ring
+    step_fn, _ = build_decode(cfg, device, ShapeCell("n", C, B, "decode"))
+    caches = model.init_cache(B, C)
+    same = True
+    for pos, logits in enumerate(got):
+        want, caches = step_fn(params, caches, tokens[pos],
+                               torch.tensor(pos, dtype=torch.int32,
+                                            device=device))
+        same = same and torch.equal(logits, want)
+    log(f"[{path}] {smi}: {len(got)} decode steps through the tenant "
+        f"(grown, shrunk, grown, grown after a defragment) equal a native "
+        f"decode at the same positions bitwise: {same}; grow poll s "
+        f"{[round(x, 3) for x in timing['grow']]}, shrink "
+        f"{[round(x, 3) for x in timing['shrink']]}; launches={counts}")
+    if not same:
+        raise AssertionError(f"{path}: logits differ from native decode")
+    if counts.get("decode_attention", 0) != len(got) * cfg.n_layers:
+        raise AssertionError(f"{path}: decode_attention launches "
+                             f"{counts.get('decode_attention', 0)}")
+    count_path(path, counts, launches)
+    del params, caches, got
+    torch.cuda.empty_cache()
+    log(f"[{path}] took {time.perf_counter() - t0:.1f}s")
+
+
+#: the long-context cases: (arch, path, prompt tokens, capacity); the
+#: prompt leaves room for 16 new tokens in the capacity, whose page row
+#: is the Sk of every chunk call
+LONG_CONTEXT = (("qwen1.5-0.5b", "long-context-qwen", 16368, 16384,
+                 "chunked"),
+                ("recurrentgemma-2b", "long-context-recurrentgemma", 4096,
+                 4112, "banded"))
+LONG_NEW, LONG_CHUNK = 16, 512
+#: the long paths against the dense formula at one layer
+LONG_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def long_attention_check(device, name, Sq, Sk, Hq, Hkv, hd, window, q0):
+    """One chunk call's attention_core (the long path its row takes)
+    against the dense formula on the same inputs, fp32 and bf16; in
+    bf16 the peak memory of the call, long path against dense."""
+    import torch
+    from repro_torch.models import attention as attn
+    gen = torch.Generator(device=device).manual_seed(Sk + q0)
+    q = torch.randn((1, Sq, Hq, hd), generator=gen, device=device)
+    k = torch.randn((1, Sk, Hkv, hd), generator=gen, device=device)
+    v = torch.randn((1, Sk, Hkv, hd), generator=gen, device=device)
+    qp = torch.arange(q0, q0 + Sq, device=device)
+    kp = torch.arange(Sk, device=device)
+    route = "banded" if 0 < window < Sk else "chunked"
+
+    def dense(q, k, v):
+        rep = Hq // Hkv
+        return attn._direct(
+            attn._grouped(q, Hq), k.repeat_interleave(rep, dim=2),
+            v.repeat_interleave(rep, dim=2),
+            attn._mask_bias(qp, kp, True, window),
+            1.0 / hd ** 0.5).reshape(q.shape).to(q.dtype)
+
+    def peak(fn):
+        sync(device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        fn()
+        sync(device)
+        return torch.cuda.max_memory_allocated(device) - base
+
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        a, b, c = (x.to(getattr(torch, dt)) for x in (q, k, v))
+        attn.ROUTES.clear()
+        got = attn.attention_core(a, b, c, q_pos=qp, k_pos=kp,
+                                  window=window)
+        if dict(attn.ROUTES) != {route: 1}:
+            raise AssertionError(f"{name}: route {dict(attn.ROUTES)}")
+        err = _max_err(got, dense(a, b, c))
+        log(f"[{name}] one layer {route} vs dense, {dt} Sq={Sq} Sk={Sk} "
+            f"{Hq}/{Hkv} hd {hd} window {window} q from {q0}: max abs err "
+            f"{err:.3g} (tol {LONG_TOL[dt]:g})")
+        if not err <= LONG_TOL[dt]:
+            raise AssertionError(f"{name}: {route} path disagrees with the "
+                                 "dense formula")
+        if dt == "bfloat16":
+            out["long_bytes"] = peak(lambda: attn.attention_core(
+                a, b, c, q_pos=qp, k_pos=kp, window=window))
+            out["dense_bytes"] = peak(lambda: dense(a, b, c))
+    del q, k, v, a, b, c, got
+    return out
+
+
+def long_context_phase(device, launches, smi):
+    """ROADMAP item 6 on the main path: a long prompt through
+    ``ServeEngine`` in 512-token chunks (the attention over each chunk's
+    page row runs the chunked online softmax for qwen1.5-0.5b at full
+    depth, the banded path for recurrentgemma-2b's swa layers), then 16
+    decode steps (fused paged decode and the sampler; the RG-LRU scan
+    in recurrentgemma's chunks). Gates: one layer's long path within
+    LONG_TOL of the dense formula; ids in range, pages leased == freed,
+    no full prefill, every chunk call of every attention layer on the
+    route named. Prints the peak memory of one chunk call, long path
+    against dense, and of the whole prefill, and the prefill's host
+    seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn
+    from repro_torch.serving import ServeEngine
+    t0 = time.perf_counter()
+    for arch, path, plen, cap, route in LONG_CONTEXT:
+        cfg = get_config(arch)
+        window = cfg.window if route == "banded" else 0
+        n_attn = sum(cfg.layer_mixer(i) in ("attn", "swa")
+                     for i in range(cfg.n_layers))
+        mem = long_attention_check(
+            device, path, LONG_CHUNK, cap, cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_head, window, plen - LONG_CHUNK)
+        log(f"[{path}] {smi}: one chunk call's attention at Sk={cap}, bf16: "
+            f"peak {mem['long_bytes'] / 2**20:.1f} MiB {route} against "
+            f"{mem['dense_bytes'] / 2**20:.1f} MiB dense")
+        model = Model(cfg, device)
+        params = model.init_compute_params(
+            torch.Generator(device=device).manual_seed(0))
+        prompt = np.random.default_rng(3).integers(0, cfg.vocab, (plen,))
+        eng = ServeEngine(cfg, model, 1, cap, page_size=16,
+                          chunk_tokens=LONG_CHUNK,
+                          state_paging=model.state_row_bytes() > 0)
+        torch.cuda.empty_cache()
+        sync(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        attn.ROUTES.clear()
+        common.reset_launches()
+        rid = eng.submit(prompt, max_new_tokens=LONG_NEW, temperature=0.0)
+        t1 = time.perf_counter()
+        while eng.stats.prefills == 0:
+            eng.step(params)
+        sync(device)
+        prefill_s = time.perf_counter() - t1
+        prefill_peak = torch.cuda.max_memory_allocated(device) - base
+        t1 = time.perf_counter()
+        while eng.has_work():
+            eng.step(params)
+        decode_s = time.perf_counter() - t1
+        counts, routes = dict(common.LAUNCHES), dict(attn.ROUTES)
+        s = eng.stats
+        out = eng.completed[rid].out_tokens
+        chunks = -(-plen // LONG_CHUNK)
+        log(f"[{path}] {smi}: {arch} at full depth, bf16, a {plen}-token "
+            f"prompt in {s.prefill_chunks} chunks of {LONG_CHUNK} over page "
+            f"rows of {cap} (prefill {prefill_s:.2f}s host clock, peak "
+            f"{prefill_peak / 2**30:.3f} GiB above the weights and the "
+            f"engine's KV and state arrays), "
+            f"{len(out)} new tokens in {decode_s:.2f}s; routes {routes} "
+            f"(want {route} {n_attn * chunks}); full_prefills="
+            f"{s.full_prefills}, pages leased={s.pages_leased} freed="
+            f"{s.pages_freed}, state pages leased={s.state_pages_leased} "
+            f"freed={s.state_pages_freed}; ids {out}; launches={counts}")
+        if routes != {route: n_attn * chunks}:
+            raise AssertionError(f"{path}: routes {routes}")
+        if len(out) != LONG_NEW or not all(0 <= x < cfg.vocab for x in out):
+            raise AssertionError(f"{path}: ids {out}")
+        if s.full_prefills or s.pages_leased != s.pages_freed or \
+                s.state_pages_leased != s.state_pages_freed:
+            raise AssertionError(f"{path}: paging invariants broken")
+        count_path(path, counts, launches)
+        del params, model, eng
+        torch.cuda.empty_cache()
+    log(f"[long-context] took {time.perf_counter() - t0:.1f}s")
+
+
 def log_profile(name, what, prof, wall_us, top=12):
     """Device busy time and idle share of a profiled window, and its top
     device-time entries with their share of the busy time."""
@@ -2209,15 +2708,26 @@ def mux_phase(device, launches):
     vmm, _ = virtual_server(device, "hybrid")
     try:
         reg = ModelRegistry(loader=vmm.loader, obs=obs)
-        for name in names:
+
+        def register(name):
             cfg, model, params = weights.pop(name)
             t0 = time.perf_counter()
             e = reg.register(name, cfg=cfg, model=model, params=params,
                              device=device)
-            del params
+            return e, time.perf_counter() - t0
+
+        # the registry is thread-safe and each registration hashes its
+        # weights on a host core of its own: four at a time
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            done = dict(zip(names, pool.map(register, names)))
+        for name, (e, s) in done.items():
             log(f"[mux] registered {name}: {e.param_bytes} B of weights, "
                 f"crc {e.bitfile.crc}, register (CRC over every weight "
-                f"byte) {time.perf_counter() - t0:.2f}s")
+                f"byte, four registrations at a time) {s:.2f}s")
+        log(f"[mux] {len(names)} registrations in "
+            f"{time.perf_counter() - t0:.2f}s")
+        del done
         mux = MuxEngine(reg, names, batch_per_model=2, capacity=256,
                         page_size=16, chunk_tokens=32, obs=obs)
         for name in names:
@@ -2843,10 +3353,11 @@ def profile_train_step(run, params, state, batch, smi, node="_Flash",
         out = run(params, state, batch)
         float(out[2]["loss"])
         wall = 1e3 * (time.perf_counter() - t)
-    rows = device_rows(prof)
+    averages = prof.key_averages()
+    rows = device_rows(prof, averages)
     busy = sum(r[0] for r in rows) / 1e3
     bwd = 0.0
-    for e in prof.key_averages():
+    for e in averages:
         if f"{node}Backward" in e.key:
             dev = getattr(e, "device_time_total", None)
             bwd = max(bwd, (e.cuda_time_total if dev is None else dev) / 1e3)
@@ -3382,8 +3893,10 @@ def time_new_kernels(device):
 def time_recurrent_kernels(device):
     """Times of the recurrent kernels at the serving shapes (the JSON
     rows), at B=4, S=4096 and at the families' train shape, B=1 S=2048
-    (printed; their plain versions loop over the tokens, so two calls
-    are timed there), the no-new-token paged decode
+    (printed; their plain versions loop over the tokens, a few device
+    kernels a token, so one call is timed at S >= 2048 and five below:
+    a trace of more calls holds hundreds of thousands of events and
+    takes minutes of host time to read), the no-new-token paged decode
     at the fused row's shapes, and flash / fused decode at
     recurrentgemma's hd=256, Hq/Hkv 10/1, window 2048, and at hd 96 and
     112 beside hd 128 (printed)."""
@@ -3412,7 +3925,7 @@ def time_recurrent_kernels(device):
             "shape": f"B={B} S={S} D={D} fp32",
             "ms": timed(lambda: rglru_scan_op(a, b, h0)),
             "plain_ms": timed(lambda: rglru_scan_ref(a, b, h0),
-                              *((2, 1) if big else ())),
+                              *((1, 1) if big else (5, 1))),
             "library_ms": None, **bnd}
     for name, (B, H, S, K) in (("rwkv6_wkv", (1, 64, 130, 64)),
                                ("rwkv6_wkv@S32", (1, 64, 32, 64)),
@@ -3427,7 +3940,7 @@ def time_recurrent_kernels(device):
             "shape": f"B={B} H={H} S={S} K={K} fp32",
             "ms": timed(lambda: rwkv6_wkv_op(*ins)),
             "plain_ms": timed(lambda: rwkv6_wkv_ref(*ins),
-                              *((2, 1) if big else ())),
+                              *((1, 1) if big else (5, 1))),
             "library_ms": None, **bnd}
 
     def gather_sdpa(d, with_new, window=0):
@@ -3667,6 +4180,14 @@ def main():
     phase_done("train")
     apps_phase(device, launches)
     phase_done("apps")
+    elastic_mux_phase(device, launches, smi)
+    phase_done("elastic-mux")
+    elastic_failover_phase(device, launches, smi)
+    phase_done("elastic-failover")
+    autoscaler_phase(device, launches, smi)
+    phase_done("autoscaler")
+    long_context_phase(device, launches, smi)
+    phase_done("long-context")
 
     if "--profile" in sys.argv[1:]:
         model = Model(cfg, device)

@@ -317,7 +317,4 @@ def list_archs():
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from repro_torch.configs import (  # noqa: F401  (each registers itself)
-        internlm2_1_8b, internvl2_2b, kimi_k2_1t_a32b, mixtral_8x7b,
-        phi3_mini_3_8b, qwen1_5_0_5b, recurrentgemma_2b, rwkv6_7b,
-        starcoder2_15b, whisper_medium)
+    from repro_torch.configs import archs  # noqa: F401  (registers them)

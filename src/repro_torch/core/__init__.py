@@ -9,10 +9,11 @@ FPGA-virtualization concept → module map:
   VMM                → vmm.VMM (fev / bev / hybrid / wfq / slo policies)
   MMD guest API      → tenant.GuestDevice (the paper's 8 operators)
   interposition      → interposition.OpLog / TenantCheckpointer
+  elasticity         → elastic.resize / defragment, autoscaler.Autoscaler
   criteria           → criteria.report
-
-Not ported yet: the elastic autoscaler (``autoscaler``/``elastic``).
 """
+from repro_torch.core import elastic
+from repro_torch.core.autoscaler import Autoscaler
 from repro_torch.core.criteria import CriteriaReport, report
 from repro_torch.core.mmu import (SEGMENT_BYTES, IsolationViolation,
                                   MMUError, OutOfMemory, QuotaExceeded,
@@ -31,12 +32,12 @@ from repro_torch.core.vmm import VMM, AdmissionError
 from repro_torch.core.vslice import Floorplanner, SliceSpec, VSlice
 
 __all__ = [
-    "VMM", "AdmissionError", "AdmissionPressure", "Bitfile",
+    "VMM", "AdmissionError", "AdmissionPressure", "Autoscaler", "Bitfile",
     "BrokerPlane", "CompileService", "CompletionQueue", "CriteriaReport",
     "DataPlane", "Floorplanner", "GuestDevice",
     "IsolationViolation", "LegalityError", "MMUError", "OutOfMemory",
     "PRIORITY_HIGH", "PRIORITY_LOW", "PRIORITY_NORMAL", "PassthroughPlane",
     "ProgramLoader", "ProgramRequest", "QuotaExceeded", "SEGMENT_BYTES",
     "SLOPlane", "SegmentPool", "SliceSpec", "Tenant", "TransferEngine",
-    "VSlice", "WFQPlane", "make_data_plane", "report",
+    "VSlice", "WFQPlane", "elastic", "make_data_plane", "report",
 ]

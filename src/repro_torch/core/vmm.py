@@ -32,8 +32,11 @@ This is the PyTorch port of ``repro.core.vmm``: the pod is a 2-D grid of
 and buffers live on its slice's single device, and each tenant's MMU
 pool is sized from the free memory of its slice's cards (a card that
 several grid entries name is shared among them) unless ``hbm_per_chip``
-is given (which a CPU grid must give). The elastic
-autoscaler is not ported yet (``autoscaler`` stays ``None``).
+is given (which a CPU grid must give). A slice of k entries of a
+one-card view runs on that card with k shares of its memory, so
+migration and the elastic grow and shrink (``repro_torch.core.elastic``)
+work on one card; the ``autoscaler`` hook is set by
+:class:`repro_torch.core.autoscaler.Autoscaler` when one attaches.
 """
 from __future__ import annotations
 
@@ -56,7 +59,7 @@ from repro_torch.core.scheduler import (IRQ_DEGRADED,  # noqa: F401
                                         make_data_plane)
 from repro_torch.core.shell import CompletionQueue, TransferEngine
 from repro_torch.core.tenant import GuestBuffer, GuestDevice, Tenant
-from repro_torch.core.vslice import Floorplanner
+from repro_torch.core.vslice import Floorplanner, card
 from repro_torch.obs import NULL_HUB, ObsHub
 
 
@@ -75,15 +78,6 @@ def device_memory_bytes(device) -> int:
                          "hbm_per_chip for a grid of non-CUDA devices")
     free, _total = torch.cuda.mem_get_info(device)
     return free
-
-
-def _card(d):
-    """The physical device a grid entry names (``cuda`` → the current
-    CUDA device's index), so that entries naming one card compare equal."""
-    d = torch.device(d)
-    if d.index is None and d.type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return d
 
 
 class VMM:
@@ -120,7 +114,7 @@ class VMM:
             # grid entries per physical card: the entries of a 1×3 view
             # of one card share that card's memory three ways
             self._views = collections.Counter(
-                _card(d) for d in self.floorplanner.grid.flatten())
+                card(d) for d in self.floorplanner.grid.flatten())
             for d in self._views:
                 device_memory_bytes(d)          # raises on a CPU grid
         self.auditor = IsolationAuditor()
@@ -139,7 +133,7 @@ class VMM:
                                      straggler_factor=straggler_factor,
                                      obs=self.obs,
                                      **(scheduler_opts or {}))
-        # The elastic autoscaler hook (not ported yet: stays None).
+        # The elastic autoscaler hook: set by Autoscaler when one attaches.
         self.autoscaler = None
         # Legacy stats() trees re-registered as providers: the registry
         # snapshot exposes the same data the six ad-hoc dicts used to,
@@ -173,12 +167,23 @@ class VMM:
         if self.hbm_per_chip is not None:
             total = vs.n_devices * self.hbm_per_chip
         else:
-            total = sum(device_memory_bytes(_card(d)) // self._views[_card(d)]
+            total = sum(device_memory_bytes(card(d)) // self._views[card(d)]
                         for d in vs.devices.flatten())
         return mmu_mod.SegmentPool(
             total_bytes=total, backend=self.mmu_backend,
             segment_bytes=self.segment_bytes, auditor=self.auditor,
             obs=self.obs)
+
+    def card_bytes(self, device) -> int:
+        """What the grid entries naming ``device``'s card divide among
+        them: the card's free memory now, or ``hbm_per_chip`` for each
+        entry naming it. A pool made now from k of the card's n entries
+        holds k/n of it."""
+        c = card(device)
+        if self.hbm_per_chip is None:
+            return device_memory_bytes(c)
+        return self.hbm_per_chip * sum(
+            1 for d in self.floorplanner.grid.flatten() if card(d) == c)
 
     # ==================================================================
     # Admission / teardown
@@ -419,9 +424,16 @@ class VMM:
                                  {"slice": slice_id})
 
     def migrate_tenant(self, t: Tenant, new_shape=None,
-                       state_template=None) -> Tenant:
+                       state_template=None, shardings_fn=None) -> Tenant:
         """Live migration: checkpoint → re-floorplan → re-bind program →
-        restore onto the new slice's device."""
+        restore onto the new slice's device (its one card). Also the
+        elastic grow/shrink primitive. ``shardings_fn`` (the reference's
+        re-sharding of the restored state over the new slice) must be
+        ``None``: state sharded across cards is not ported."""
+        if shardings_fn is not None:
+            raise NotImplementedError(
+                "shardings_fn: state sharded across cards is not ported "
+                "(ROADMAP item 9)")
         rec = self.oplog.begin(t.name, "migrate",
                                {"from": t.vslice.spec.shape,
                                 "to": new_shape or t.vslice.spec.shape})
@@ -488,7 +500,7 @@ class VMM:
             # timers
             "ops": self.oplog.op_latency_stats(),
             "scheduler": self.plane.stats(),
-            # elastic-resize action log (the autoscaler is not ported)
+            # elastic-resize action log (None until an Autoscaler attaches)
             "autoscaler": (self.autoscaler.stats()
                            if self.autoscaler is not None else None),
             # the unified telemetry tree (metrics/traces/flight); the

@@ -8,9 +8,11 @@ anchor positions), the analogue of the paper's PRR floorplanning. A grid
 may name one card several times: a 1×3 view of one card gives three
 slices that time-multiplex it, as the paper's PRRs share one FPGA.
 
-This slice of the port runs programs on one device: a slice of more than
-one device is carved and checked like any other, but asking it for its
-``device`` raises until the multi-device slice.
+Programs run on one card: a slice whose grid entries all name one card
+(a (1, 4) slice of a 2×4 view of one card) runs there, on k shares of
+that card's memory; a slice whose entries name two or more cards is
+carved and checked like any other, but asking it for its ``device``
+raises (programs sharded across cards are not ported).
 """
 from __future__ import annotations
 
@@ -21,6 +23,19 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
+
+
+def card(d):
+    """The physical device a grid entry names (``cuda`` → the current
+    CUDA device's index), so that entries naming one card compare equal;
+    an entry that is no device name (a stand-in object) is itself."""
+    if not isinstance(d, (torch.device, str)):
+        return d
+    d = torch.device(d)
+    if d.index is None and d.type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
 
 
 @dataclass(frozen=True)
@@ -51,13 +66,27 @@ class VSlice:
         return self.spec.n_devices
 
     @property
+    def cards(self) -> Tuple[torch.device, ...]:
+        """The distinct physical devices the slice's grid entries name,
+        in grid order."""
+        out = []
+        for d in self.devices.flatten():
+            c = card(d)
+            if c not in out:
+                out.append(c)
+        return tuple(out)
+
+    @property
     def device(self):
-        """The slice's single device (programs run on one device here)."""
-        if self.n_devices != 1:
+        """The one card every grid entry of the slice names (a slice of k
+        entries of a one-card view is that card, with k shares of its
+        memory)."""
+        cards = self.cards
+        if len(cards) != 1:
             raise NotImplementedError(
-                f"slice {self.spec.shape}: programs on a slice of more than "
-                "one device are not ported yet")
-        return self.devices.flatten()[0]
+                f"slice {self.spec.shape} spans {len(cards)} cards: programs "
+                "sharded across cards are not ported (ROADMAP item 9)")
+        return cards[0]
 
     @property
     def topology_key(self) -> str:

@@ -6,7 +6,9 @@ as in the reference), one-token decode against a ring cache through
 the ring decode op, paged decode through the fused op, chunked
 prefill against leased pages in plain PyTorch, and the enc-dec cross
 attention (``cross_kv``, ``cross_attn_full``, ``cross_attn_decode``,
-plain PyTorch as in the reference). Every path that a sliding-window
+plain PyTorch as in the reference). The plain core keeps the
+reference's memory-saving paths for Sk > 2048: a banded sliding window
+and a chunked online softmax. Every path that a sliding-window
 (``swa``) layer runs takes its ``window``; rope is applied only when
 ``cfg.use_rope`` (whisper adds sinusoidal positions to its embeddings
 instead).
@@ -17,6 +19,7 @@ as in the reference.
 """
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -25,9 +28,15 @@ import torch.nn.functional as F
 from repro_torch.kernels.decode_attention.ops import (decode_attention_op,
                                                       fused_decode_step_op)
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
-from repro_torch.models.layers import apply_rope, dense_init, dt
+from repro_torch.models.layers import (apply_rope, dense_init, dt,
+                                       rope_tables)
 
+_DIRECT_MAX = 2048      # Sk at or below which the dense path is used
+_CHUNK_Q = 512
+_CHUNK_K = 512
 _NEG = -1e30
+#: attention_core's calls by route ("direct", "banded", "chunked")
+ROUTES = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -61,8 +70,13 @@ def _project_qkv(cfg, p, x):
     return q, k, v
 
 
-def _rope(cfg, t, positions):
-    return apply_rope(t, positions, cfg.rope_theta) if cfg.use_rope else t
+def _rope(cfg, q, k, positions):
+    """q and k roped at ``positions``, from one sin/cos table."""
+    if not cfg.use_rope:
+        return q, k
+    tables = rope_tables(positions, q.shape[-1], cfg.rope_theta)
+    return (apply_rope(q, positions, cfg.rope_theta, tables),
+            apply_rope(k, positions, cfg.rope_theta, tables))
 
 
 def _out_proj(cfg, p, o):
@@ -71,7 +85,7 @@ def _out_proj(cfg, p, o):
 
 
 # ---------------------------------------------------------------------------
-# Core attention maths (plain PyTorch, the reference's ``_direct`` path)
+# Core attention maths (plain PyTorch: the reference computes these in XLA)
 # ---------------------------------------------------------------------------
 
 
@@ -79,29 +93,154 @@ def repeat_kv(k, n_rep):
     return k if n_rep == 1 else k.repeat_interleave(n_rep, dim=2)
 
 
-def attention_core(q, k, v, *, q_pos, k_pos, window=0, causal=True):
-    """Attention by absolute positions — causal unless ``causal`` is
-    False (the encoder, cross attention), with a sliding window when
-    ``window > 0`` (``(q_pos - k_pos) < window``, the reference's
-    ``_mask_bias``): q (B,Sq,Hq,hd); k/v (B,Sk,Hkv,hd) → (B,Sq,Hq,hd).
-    One dense masked score tensor for every Sk in this slice (the
-    reference's ``_direct``; its ``_banded_swa`` computes the same
-    function); its chunked and banded memory-saving paths for
-    Sk > 2048 are not ported yet."""
-    Hq, hd = q.shape[2], q.shape[3]
-    k = repeat_kv(k, Hq // k.shape[2])
-    v = repeat_kv(v, Hq // v.shape[2])
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / math.sqrt(hd))
+def _grouped(q, n_kv):
+    B, S, Hq, hd = q.shape
+    return q.reshape(B, S, n_kv, Hq // n_kv, hd)
+
+
+def _mask_bias(q_pos, k_pos, causal, window):
+    """(Sq, Sk) additive fp32 bias from absolute positions."""
     ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
-                    device=q.device)
+                    device=q_pos.device)
     if causal:
         ok &= q_pos[:, None] >= k_pos[None, :]
     if window > 0:
         ok &= (q_pos[:, None] - k_pos[None, :]) < window
-    s = s + torch.where(ok, 0.0, _NEG)
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", pr.to(v.dtype), v)
-    return o.to(q.dtype)
+    return torch.where(ok, 0.0, _NEG).float()
+
+
+def _direct(q, k, v, bias, scale):
+    """q (B,Sq,Hkv,G,hd); k/v (B,Sk,Hkv,hd); bias (Sq,Sk): one dense
+    masked score tensor."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
+    s = s + bias
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+
+
+def _chunked_full(q, k, v, q_pos, k_pos, causal, scale):
+    """Query chunks of ``_CHUNK_Q``, each an online softmax over KV
+    chunks of ``_CHUNK_K`` in order from the first: O(Sq) live memory.
+    A KV chunk masked entirely before any unmasked one would add weight
+    exp(0) per masked key, which the next unmasked chunk's rescale
+    (exp(-1e30 - m) = 0) wipes out; with ``k_pos`` from 0 every query's
+    first chunk holds its own unmasked keys, as in the reference."""
+    B, Sq, Hkv, G, hd = q.shape
+    Sk = k.shape[1]
+    cq = min(_CHUNK_Q, Sq)
+    ck = min(_CHUNK_K, Sk)
+    nq, nk = Sq // cq, Sk // ck
+    assert Sq % cq == 0 and Sk % ck == 0, (Sq, Sk, cq, ck)
+    outs = []
+    for i in range(nq):
+        q_i = q[:, i * cq:(i + 1) * cq]
+        qp_i = q_pos[i * cq:(i + 1) * cq]
+        acc = torch.zeros((B, cq, Hkv, G, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, cq, Hkv, G), _NEG, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, cq, Hkv, G), dtype=torch.float32,
+                        device=q.device)
+        for j in range(nk):
+            k_j = k[:, j * ck:(j + 1) * ck]
+            v_j = v[:, j * ck:(j + 1) * ck]
+            s = torch.einsum("bqhgd,bkhd->bqhgk", q_i, k_j).float() * scale
+            if causal:
+                bad = qp_i[:, None] < k_pos[None, j * ck:(j + 1) * ck]
+                s = s + torch.where(bad, _NEG, 0.0).float()[
+                    None, :, None, None, :]
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqhgk,bkhd->bqhgd", p.to(v_j.dtype), v_j).float()
+            m = m_new
+        outs.append(acc / l.clamp_min(1e-30)[..., None])
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _banded_swa(q, k, v, q_pos, k_pos, window, causal, scale):
+    """Sliding-window attention: each query chunk of ``_CHUNK_Q`` attends
+    over a band of KV rows of one static size that covers its window,
+    taken at a start computed on the device (no host sync)."""
+    B, Sq, Hkv, G, hd = q.shape
+    Sk = k.shape[1]
+    cq = min(_CHUNK_Q, Sq)
+    nq = Sq // cq
+    assert Sq % cq == 0, (Sq, cq)
+    band = int(min(Sk, (math.ceil(window / cq) + 1) * cq))
+    offs = torch.arange(band, device=q.device)
+    outs = []
+    for i in range(nq):
+        q_i = q[:, i * cq:(i + 1) * cq]
+        qp_i = q_pos[i * cq:(i + 1) * cq]
+        # band start: aligned so that [start, start+band) covers
+        # [chunk_end - window + 1, chunk_end], offset by k_pos[0]
+        start = (qp_i[-1] - (band - 1)).clamp(0, Sk - band)
+        start = (start - k_pos[0]).clamp(0, Sk - band)
+        idx = start + offs
+        k_b = k.index_select(1, idx)
+        v_b = v.index_select(1, idx)
+        kp_b = k_pos.index_select(0, idx)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", q_i, k_b).float() * scale
+        ok = (qp_i[:, None] - kp_b[None, :]) < window
+        if causal:
+            ok &= qp_i[:, None] >= kp_b[None, :]
+        s = s + torch.where(ok, 0.0, _NEG).float()[None, :, None, None, :]
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bqhgk,bkhd->bqhgd", p.to(v_b.dtype), v_b))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def check_chunk_prefill(chunk_tokens, row_tokens, windows):
+    """The long paths' divisibility, checked once for an engine whose
+    chunk-prefill calls attend at most ``chunk_tokens`` queries over a
+    slot's page row of ``row_tokens`` keys, in attention layers of
+    ``windows`` (0: full attention). Past ``_DIRECT_MAX`` a chunk must be
+    one query chunk or a whole number of them, and a prompt's last chunk
+    can be any length, so ``chunk_tokens`` ≤ ``_CHUNK_Q``; a layer on the
+    chunked path (no window, or one as long as the row) needs the row in
+    whole KV chunks. Raises ValueError."""
+    if row_tokens <= _DIRECT_MAX:
+        return
+    if chunk_tokens > _CHUNK_Q:
+        raise ValueError(f"chunked prefill over page rows of {row_tokens} "
+                         f"tokens needs chunk_tokens <= {_CHUNK_Q}; got "
+                         f"{chunk_tokens}")
+    if any(not 0 < w < row_tokens for w in windows) \
+            and row_tokens % _CHUNK_K:
+        raise ValueError(f"chunked prefill over page rows of {row_tokens} "
+                         f"tokens needs rows of a multiple of {_CHUNK_K} "
+                         "tokens (the capacity, in whole pages)")
+
+
+def attention_core(q, k, v, *, q_pos, k_pos, window=0, causal=True):
+    """Attention by absolute positions — causal unless ``causal`` is
+    False (the encoder, cross attention), with a sliding window when
+    ``window > 0`` (``(q_pos - k_pos) < window``): q (B,Sq,Hq,hd); k/v
+    (B,Sk,Hkv,hd) → (B,Sq,Hq,hd). The reference's dispatch: one dense
+    masked score tensor while Sk ≤ ``_DIRECT_MAX`` (short self-attention
+    and long-query × short-KV cross attention); past it the banded path
+    when 0 < window < Sk, else the chunked online softmax. Each call
+    counts its route in ``ROUTES``."""
+    Hq, hd = q.shape[2], q.shape[3]
+    k = repeat_kv(k, Hq // k.shape[2])
+    v = repeat_kv(v, Hq // v.shape[2])
+    scale = 1.0 / math.sqrt(hd)
+    qg = _grouped(q, k.shape[2])
+    Sq, Sk = q.shape[1], k.shape[1]
+    if Sk <= _DIRECT_MAX:
+        ROUTES["direct"] += 1
+        o = _direct(qg, k, v, _mask_bias(q_pos, k_pos, causal, window),
+                    scale)
+    elif 0 < window < Sk:
+        ROUTES["banded"] += 1
+        o = _banded_swa(qg, k, v, q_pos, k_pos, window, causal, scale)
+    else:
+        ROUTES["chunked"] += 1
+        o = _chunked_full(qg, k, v, q_pos, k_pos, causal, scale)
+    return o.reshape(q.shape[0], Sq, Hq, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -123,8 +262,7 @@ def attn_full(cfg, p, x, positions, cache_capacity=0, window=0,
     reference)."""
     S = x.shape[1]
     q, k, v = _project_qkv(cfg, p, x)
-    q = _rope(cfg, q, positions)
-    k = _rope(cfg, k, positions)
+    q, k = _rope(cfg, q, k, positions)
     if causal:
         y = flash_attention_op(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=True, window=window)
@@ -171,8 +309,7 @@ def attn_decode(cfg, p, x1, cache, pos, pvec, window=0):
     is); ``pvec`` the same as a (1,) int64 tensor. Returns y (B,1,D)."""
     C = cache["k"].shape[1]
     q, k, v = _project_qkv(cfg, p, x1)
-    q = _rope(cfg, q, pvec)
-    k = _rope(cfg, k, pvec)
+    q, k = _rope(cfg, q, k, pvec)
     slot = torch.remainder(pvec, C)
     cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
     cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
@@ -186,7 +323,26 @@ def attn_decode(cfg, p, x1, cache, pos, pvec, window=0):
 # ---------------------------------------------------------------------------
 
 
-def attn_decode_paged(cfg, p, x1, pools, positions, block_tables, live,
+def paged_decode_index(step, positions, block_tables, ps):
+    """What every attention layer of one paged decode step derives from
+    the positions and block tables — the clamped positions, the lengths
+    the fused op reads, and the (page, offset) of each live slot's new
+    row — made by the first layer and kept in ``step`` (a dict holding
+    ``"live"``, the indices of the slots with ``positions >= 0``)."""
+    key = ("index", ps)
+    if key not in step:
+        live = step["live"]
+        pos_c = positions.clamp_min(0)
+        lengths = (positions + 1).clamp_min(0).to(torch.int32)
+        nb = block_tables.shape[1]
+        blk = (pos_c // ps).clamp(0, nb - 1).long()
+        page = block_tables.gather(1, blk[:, None])[:, 0]
+        step[key] = (pos_c, lengths,
+                     (page[live].long(), (pos_c % ps)[live].long()))
+    return step[key]
+
+
+def attn_decode_paged(cfg, p, x1, pools, positions, block_tables, step,
                       window=0):
     """Paged decode: one token per slot against shared page pools.
 
@@ -196,24 +352,28 @@ def attn_decode_paged(cfg, p, x1, pools, positions, block_tables, live,
     dead slot (no write, zero attention output); block_tables (B, nb)
     int32. Attention always runs through the fused op, which reads the
     pools *before* the write and substitutes the new K/V at
-    ``lengths-1``. ``live`` holds the indices of the slots with
-    ``positions >= 0``; only those rows are written — an explicit
-    mask instead of the reference's out-of-range sentinel page with
-    ``mode="drop"``, which torch indexing would reject. A sliding window
-    keeps tokens ``t >= length - window``. Returns y (B,1,D)."""
+    ``lengths-1``. ``step`` is the decode step's dict: ``step["live"]``
+    holds the indices of the slots with ``positions >= 0``; only those
+    rows are written — an explicit mask instead of the reference's
+    out-of-range sentinel page with ``mode="drop"``, which torch indexing
+    would reject — and the step's index tensors and rope tables are kept
+    there by the first layer that makes them. A sliding window keeps
+    tokens ``t >= length - window``. Returns y (B,1,D)."""
     ps = pools["k"].shape[1]
+    live = step["live"]
+    pos_c, lengths, at = paged_decode_index(step, positions, block_tables,
+                                            ps)
     q, k, v = _project_qkv(cfg, p, x1)
-    pos_c = positions.clamp_min(0)
-    q = _rope(cfg, q, pos_c[:, None])
-    k = _rope(cfg, k, pos_c[:, None])
-    lengths = (positions + 1).clamp_min(0).to(torch.int32)
+    if cfg.use_rope:
+        key = ("rope", q.shape[-1])
+        if key not in step:
+            step[key] = rope_tables(pos_c[:, None], q.shape[-1],
+                                    cfg.rope_theta)
+        q = apply_rope(q, None, cfg.rope_theta, step[key])
+        k = apply_rope(k, None, cfg.rope_theta, step[key])
     o = fused_decode_step_op(q.contiguous(), k.contiguous(), v.contiguous(),
                              pools["k"], pools["v"], lengths, block_tables,
                              window=window)
-    nb = block_tables.shape[1]
-    blk = (pos_c // ps).clamp(0, nb - 1).long()
-    page = block_tables.gather(1, blk[:, None])[:, 0]
-    at = (page[live].long(), (pos_c % ps)[live].long())
     pools["k"].index_put_(at, k[live, 0])
     pools["v"].index_put_(at, v[live, 0])
     return _out_proj(cfg, p, o)
@@ -230,8 +390,7 @@ def attn_prefill_chunk_paged(cfg, p, x, pools, positions, block_row,
     causality. Returns y (1, L, D)."""
     _, ps, Hkv, hd = pools["k"].shape
     q, k, v = _project_qkv(cfg, p, x)
-    q = _rope(cfg, q, positions)
-    k = _rope(cfg, k, positions)
+    q, k = _rope(cfg, q, k, positions)
     pages = block_row[positions // ps].long()
     offs = positions % ps
     pools["k"].index_put_((pages, offs), k[0])

@@ -14,6 +14,7 @@ Conventions (as in the reference)
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -97,20 +98,34 @@ def apply_norm(cfg, p, x):
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_freqs(half, theta, device):
+    """theta^(-i/half) for i < half, fp32, made once per (half, theta,
+    device): a decode step would otherwise rebuild it in every layer."""
+    with torch.inference_mode(False), torch.no_grad():
+        exps = torch.arange(half, dtype=torch.float32, device=device) / half
+        return 1.0 / (theta ** exps)
+
+
 def rope_angles(positions, d_head, theta):
     """positions (…,) int → (…, d_head/2) fp32 angles."""
-    half = d_head // 2
-    exps = torch.arange(half, dtype=torch.float32,
-                        device=positions.device) / half
-    freqs = 1.0 / (theta ** exps)
-    return positions.float()[..., None] * freqs
+    return positions.float()[..., None] * _inv_freqs(d_head // 2, theta,
+                                                     positions.device)
 
 
-def apply_rope(x, positions, theta):
-    """x (B, S, H, hd); positions (S,) or (B, S)."""
-    ang = rope_angles(positions, x.shape[-1], theta)
+def rope_tables(positions, d_head, theta):
+    """(sin, cos) of the angles, shaped to broadcast over (B, S, H,
+    d_head/2); positions (S,) or (B, S)."""
+    ang = rope_angles(positions, d_head, theta)
     ang = ang[None, :, None, :] if ang.dim() == 2 else ang[:, :, None, :]
-    sin, cos = torch.sin(ang), torch.cos(ang)
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x, positions, theta, tables=None):
+    """x (B, S, H, hd); positions (S,) or (B, S); ``tables`` the
+    :func:`rope_tables` of these positions when the caller has them."""
+    sin, cos = tables if tables is not None else \
+        rope_tables(positions, x.shape[-1], theta)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -420,11 +420,15 @@ def _cross_decode(cfg, spec, p, x, rows):
 
 
 def apply_layer_decode(cfg, spec, p, x, pools, rows, positions,
-                       block_tables, live):
+                       block_tables, step):
+    """One layer of a paged decode step; ``step`` is the step's dict
+    (``"live"`` and what the attention layers derive once a step, see
+    :func:`~repro_torch.models.attention.attn_decode_paged`)."""
+    live = step["live"]
     h = apply_norm(cfg, p["norm1"], x)
     if spec.is_attn:
         y = attn.attn_decode_paged(cfg, p["mixer"], h, pools, positions,
-                                   block_tables, live,
+                                   block_tables, step,
                                    window=_window(cfg, spec))
     else:
         step = rec.rglru_decode if spec.mixer == "rglru" \
@@ -568,11 +572,13 @@ def apply_stack_decode_ring(cfg, specs, layers, x, caches, pos, pvec):
 
 def apply_stack_decode(cfg, specs, layers, x, state, positions,
                        block_tables):
-    live = (positions >= 0).nonzero(as_tuple=True)[0]   # once per step
+    # once per step: the live slots, then what the layers derive from
+    # the positions (index tensors, rope tables), kept by the first
+    step = {"live": (positions >= 0).nonzero(as_tuple=True)[0]}
     for spec, p, a, rows in zip(specs, layers, attn_index(specs),
                                 state["rows"]):
         x = apply_layer_decode(cfg, spec, p, x, _pools(state, a), rows,
-                               positions, block_tables, live)
+                               positions, block_tables, step)
     return x
 
 

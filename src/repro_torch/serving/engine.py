@@ -65,6 +65,7 @@ import torch
 
 from repro_torch.analysis.lock_watchdog import note_callback
 from repro_torch.core.mmu import MMUError
+from repro_torch.models.attention import check_chunk_prefill
 from repro_torch.obs import (NULL_HUB, PHASE_ADMITTED, PHASE_DECODE,
                              PHASE_DEFERRED, PHASE_PREFILL,
                              PHASE_PREFILL_CHUNK, PHASE_REFAULT,
@@ -217,6 +218,11 @@ class ServeEngine:
                                page_size=page_size, pool=pool,
                                obs=self.obs, share_prefix=self._share,
                                swap=self._swap, extra_pages=extra_pages)
+        if self._chunked:
+            check_chunk_prefill(
+                self.chunk_tokens, self.kv.blocks_per_slot * page_size,
+                [cfg.window if s.mixer == "swa" else 0
+                 for s in model.specs if s.is_attn])
         # paged recurrent state: per-slot rows leased from the KV pool;
         # a no-op (None) for attention-only models
         self.rstate = None

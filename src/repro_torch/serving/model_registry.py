@@ -165,7 +165,7 @@ class ModelRegistry:
             self._touch(entry)
             # CRC verified at load — the serving-path check the Bitfile
             # promises
-            self._verify(entry, where="register")
+            self._verify(entry, where="register", fp=fp)
             self._set_residency(entry)
             self._evict_over_budget(keep={name})
         return entry
@@ -287,13 +287,18 @@ class ModelRegistry:
     # ------------------------------------------------------------------
     # Verification
     # ------------------------------------------------------------------
-    def _verify(self, entry: ModelBitstream, where: str):  # holds: _lock
+    def _verify(self, entry: ModelBitstream, where: str,
+                fp: Optional[str] = None):  # holds: _lock
         """The bitstream legality gate: Bitfile metadata CRC, then the
         weights fingerprint — a flipped byte in the host copy makes the
-        recomputed CRC diverge and the load is refused."""
+        recomputed CRC diverge and the load is refused. ``fp`` is the
+        fingerprint ``register`` has just taken of the same bytes: they
+        are not hashed a second time (the hash runs on one host core and
+        takes seconds a GB)."""
         self.loader.verify_bitfile(entry.bitfile, owner=entry.name)
-        src = entry.params if entry.resident else entry.host_params
-        fp = weights_fingerprint(src, entry.cfg)
+        if fp is None:
+            src = entry.params if entry.resident else entry.host_params
+            fp = weights_fingerprint(src, entry.cfg)
         self.loader.crc_checks += 1
         if self.obs.enabled:
             self.obs.count("model_crc_checks_total", model=entry.name)

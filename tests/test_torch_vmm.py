@@ -394,12 +394,25 @@ def test_compile_cache_warm_rebind():
     ProgramLoader().load(bf1, vs1, _noop)
 
 
-def test_multi_device_slice_has_no_single_device():
-    fp = Floorplanner(grid(1, 2))
-    vs = fp.allocate((1, 2))
+@pytest.mark.parametrize("entries,card", [
+    ((CPU, CPU), CPU),
+    ((torch.device("cuda", 0), torch.device("cuda", 1)), None)],
+    ids=["one-device", "two-cards"])
+def test_multi_device_slice_has_no_single_device(entries, card):
+    """A (1, 2) slice whose entries name one device runs on that device
+    (two shares of it); one whose entries name two cards has no single
+    device and raises (no ``torch.device`` needs a card to exist)."""
+    g = np.empty((1, 2), dtype=object)
+    g[0, :] = list(entries)
+    vs = Floorplanner(g).allocate((1, 2))
     assert vs.n_devices == 2
-    with pytest.raises(NotImplementedError):
-        vs.device
+    if card is None:
+        assert len(vs.cards) == 2
+        with pytest.raises(NotImplementedError, match="item 9"):
+            vs.device
+    else:
+        assert vs.cards == (card,)
+        assert vs.device == card
 
 
 @pytest.mark.parametrize("kind,seq,batch,reduced",
