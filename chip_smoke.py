@@ -188,7 +188,21 @@ Phases, each printing its lines and raising on any failure:
    banded), 16 decode steps each; one layer's long path against the
    dense formula (fp32 1e-5, bf16 2e-2), every chunk call on its route,
    the peak memory of one chunk call (long path against dense) and of
-   the prefill, the prefill's host seconds.
+   the prefill, the prefill's host seconds;
+19. sharded — the mesh step builders (``parallel/steps.py`` given a
+   ``DeviceMesh``) on a one-rank NCCL group (a ``file://`` store under a
+   temp dir) and a (1, 1) mesh on the card: qwen1.5-0.5b at full width
+   and depth (prefill B=4 S=2048 into rings of 4096, 16 decode steps, 4
+   train steps of B=4 S=2048) and recurrentgemma-2b (12 layers) and
+   rwkv6-7b (8), prefill and decode, each against the device builders
+   on the same inputs: logits, caches, losses, grad norms and trained
+   parameters bit for bit (else the first differing leaf named and every
+   leaf held to 3e-2); flash, decode_attention, rglru_scan and rwkv6_wkv
+   launched on the mesh runs; both builders' step times. With two cards
+   or more, one NCCL rank a card on a (1, n) mesh runs
+   recurrentgemma-2b (3 layers: split-KV decode) and mixtral-8x7b (1
+   layer, ``moe_impl="ep"``: token routing) in fp32 against the
+   one-card builders within 1e-3; with one card a line says so.
 
 On every path, the launch counters are set to 0 just before it runs and
 read just after; each kernel of the path must have launched.
@@ -4092,6 +4106,299 @@ def time_recurrent_kernels(device):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# [sharded]: the mesh step builders on the card
+# ---------------------------------------------------------------------------
+
+#: arch, depth (None: full), the step kinds run through both builders
+SHARDED_ARCHS = (("qwen1.5-0.5b", None, ("prefill", "decode", "train")),
+                 ("recurrentgemma-2b", 12, ("prefill", "decode")),
+                 ("rwkv6-7b", 8, ("prefill", "decode")))
+#: prefill B x S into rings of SHARDED_CAP, then SHARDED_DECODE decode
+#: steps; SHARDED_TRAIN train steps of B x S (qwen)
+SHARDED_B, SHARDED_S, SHARDED_CAP = 4, 2048, 4096
+SHARDED_DECODE, SHARDED_TRAIN = 16, 4
+PATH_KERNELS["sharded"] = ("flash_attention", "decode_attention",
+                           "rglru_scan", "rwkv6_wkv")
+#: the multi-card cases (when the machine shows two cards or more):
+#: full width, fp32, cut depth; held to the one-card run within 1e-3. A
+#: MoE case runs with room for every token at every expert
+#: (``capacity_factor = E / top_k``): the token-routing regime sizes
+#: capacity over each model rank's slice of the tokens, as the
+#: reference's does, and the one-card gather over all of them, so their
+#: drops differ by design; without drops both compute the same sums.
+#: (``tests/test_torch_moe_ep.py`` holds the drops to the reference's.)
+MULTI_CARD = (("recurrentgemma-2b", 3, {}),
+              ("mixtral-8x7b", 1, {"moe_impl": "ep"}))
+MULTI_B, MULTI_S, MULTI_CAP, MULTI_DECODE, MULTI_TOL = 4, 256, 512, 4, 1e-3
+
+
+def _local(tree):
+    from repro_torch.parallel import partition as part
+    return part.to_local(tree)
+
+
+def _same(name, what, got, want):
+    """``got`` and ``want`` (tensors or trees) bit for bit; else name the
+    first leaf that differs and hold every leaf to the bf16 tolerance."""
+    import torch
+    from repro_torch.checkpointing.checkpoint import flatten_with_path
+    pairs = list(zip(flatten_with_path(got), flatten_with_path(want))) \
+        if not isinstance(got, torch.Tensor) else [(((), got), ((), want))]
+    diff = [(p, float((g.float() - w.float()).abs().max()))
+            for (p, g), (_, w) in pairs if not torch.equal(g, w)]
+    if not diff:
+        log(f"[sharded] {name} {what}: equal bit for bit "
+            f"({len(pairs)} leaves)")
+        return
+    worst = max(e for _, e in diff)
+    log(f"[sharded] {name} {what}: {len(diff)} of {len(pairs)} leaves not "
+        f"bit-equal, first at {diff[0][0]} (max |d| {worst:.3g}, bf16 "
+        f"tolerance {TOL['bfloat16']})")
+    if not worst <= TOL["bfloat16"]:
+        raise AssertionError(f"sharded {name} {what}: max |d| {worst}")
+
+
+def _timed_call(device, fn, *args):
+    sync(device)
+    t = time.perf_counter()
+    out = fn(*args)
+    sync(device)
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def _serve_steps(cfg, target, device, params, toks, dec_toks,
+                 cap=SHARDED_CAP):
+    """Prefill into rings of ``cap`` slots, then decode, through the
+    builders for ``target`` (a device or a mesh) → (logits, caches,
+    decode logits, prefill ms, decode ms a step); the prefill runs twice
+    and the second is timed."""
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.parallel import partition as part
+    from repro_torch.parallel import steps
+    B = toks.shape[0]
+    pf, _ = steps.build_prefill(cfg, target, ShapeCell("p", cap, B,
+                                                         "prefill"))
+    dec, _ = steps.build_decode(cfg, target, ShapeCell("d", cap, B,
+                                                       "decode"))
+    mesh = target if hasattr(target, "mesh_dim_names") else None
+    batch = {"tokens": toks}
+    if mesh is not None:
+        params = part.distribute(params, pf.specs[0], mesh)
+        batch = part.distribute(batch, pf.specs[1], mesh)
+    pf(params, batch)
+    (logits, caches), pf_ms = _timed_call(device, pf, params, batch)
+    out, ms = [], []
+    for i, tok in enumerate(dec_toks):
+        if mesh is not None:
+            tok = part.distribute({"t": tok}, {"t": dec.specs[2]}, mesh)["t"]
+        pos = torch.tensor(toks.shape[1] + i, dtype=torch.int32,
+                           device=device)
+        (lg, caches), t = _timed_call(device, dec, params, caches, tok, pos)
+        out.append(lg)
+        ms.append(t)
+    return logits, caches, out, pf_ms, statistics.median(ms[1:])
+
+
+def _train_steps(cfg, target, device, batches):
+    """``SHARDED_TRAIN`` steps from ``init``'s parameters (seed 0) →
+    (params, losses, grad norms, step p50 ms)."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.models import Model
+    from repro_torch.parallel import partition as part
+    from repro_torch.parallel import steps
+    B, S = batches[0]["tokens"].shape
+    run, _ = steps.build_train(cfg, target, ShapeCell("t", S, B, "train"))
+    params = Model(cfg, device).init(
+        torch.Generator(device=device).manual_seed(0))
+    state = optim.init(optim.OptConfig(state_dtype=cfg.opt_dtype), params)
+    mesh = target if hasattr(target, "mesh_dim_names") else None
+    if mesh is not None:
+        params = part.distribute(params, run.specs[0], mesh)
+        state = part.distribute(state, run.specs[1], mesh)
+    losses, norms, ms = [], [], []
+    for b in batches:
+        if mesh is not None:
+            b = part.distribute(b, run.specs[2], mesh)
+        (params, state, m), t = _timed_call(device, run, params, state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append(t)
+    del state
+    return params, losses, norms, statistics.median(ms[1:])
+
+
+def sharded_arch(device, mesh, smi, arch, depth, kinds, counts):
+    """``arch`` at full width (``depth`` layers) through the device
+    builders, then through the mesh builders on ``mesh``; the mesh run's
+    launches are added to ``counts``."""
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.models import Model
+    cfg = family_cfg(arch, depth)
+    name = f"{arch} ({cfg.n_layers} layers)"
+    gen = torch.Generator(device=device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (SHARDED_B, SHARDED_S),
+                         generator=gen, device=device, dtype=torch.int32)
+    dec_toks = [torch.randint(0, cfg.vocab, (SHARDED_B, 1), generator=gen,
+                              device=device, dtype=torch.int32)
+                for _ in range(SHARDED_DECODE)]
+    params = Model(cfg, device).init_compute_params(
+        torch.Generator(device=device).manual_seed(0))
+    one = _serve_steps(cfg, device, device, params, toks, dec_toks)
+    common.reset_launches()
+    got = _serve_steps(cfg, mesh, device, params, toks, dec_toks)
+    for k, n in common.LAUNCHES.items():
+        counts[k] = counts.get(k, 0) + n
+    del params
+    _same(name, "prefill logits", _local(got[0]), one[0])
+    _same(name, "ring caches after the decode steps", _local(got[1]), one[1])
+    _same(name, f"{SHARDED_DECODE} decode steps' logits",
+          [_local(x) for x in got[2]], one[2])
+    log(f"[sharded] {smi}: {name} B={SHARDED_B} S={SHARDED_S} into rings "
+        f"of {SHARDED_CAP}: prefill {got[3]:.2f} ms on the (1, 1) mesh vs "
+        f"{one[3]:.2f} ms through the device builder; decode step p50 "
+        f"{got[4]:.3f} ms vs {one[4]:.3f} ms")
+    del one, got
+    torch.cuda.empty_cache()
+    if "train" not in kinds:
+        return
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (SHARDED_B, SHARDED_S),
+                                        generator=gen, device=device,
+                                        dtype=torch.int32),
+                "labels": torch.randint(0, cfg.vocab, (SHARDED_B, SHARDED_S),
+                                        generator=gen, device=device,
+                                        dtype=torch.int32),
+                "mask": torch.ones((SHARDED_B, SHARDED_S), device=device)}
+               for _ in range(SHARDED_TRAIN)]
+    one = _train_steps(cfg, device, device, batches)
+    common.reset_launches()
+    got = _train_steps(cfg, mesh, device, batches)
+    for k, n in common.LAUNCHES.items():
+        counts[k] = counts.get(k, 0) + n
+    _same(name, "train losses", torch.tensor(got[1]), torch.tensor(one[1]))
+    _same(name, "grad norms", torch.tensor(got[2]), torch.tensor(one[2]))
+    _same(name, f"parameters after {SHARDED_TRAIN} steps", _local(got[0]),
+          one[0])
+    log(f"[sharded] {smi}: {name} train B={SHARDED_B} S={SHARDED_S}: step "
+        f"p50 {got[3]:.1f} ms on the (1, 1) mesh vs {one[3]:.1f} ms through "
+        f"the device builder; losses {[round(x, 4) for x in got[1]]}")
+    del one, got
+    torch.cuda.empty_cache()
+
+
+def multi_card_rank(rank, world, store, out):
+    """One rank of the multi-card cases on a (1, world) mesh: each case's
+    prefill and decode steps through the mesh builders; rank 0 runs the
+    one-card builders beside them and writes the comparison to ``out``
+    (JSON)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import Model
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method="file://" + store,
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_local_mesh((1, world), device_type="cuda")
+        device = torch.device("cuda", rank)
+        res = []
+        for arch, depth, sharding in MULTI_CARD:
+            cfg = family_cfg(arch, depth, compute_dtype="float32")
+            if sharding:
+                cfg = dataclasses.replace(cfg, sharding=dataclasses.replace(
+                    cfg.sharding, **sharding))
+            if cfg.moe is not None:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe,
+                    capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+            gen = torch.Generator(device=device).manual_seed(1)
+            toks = torch.randint(0, cfg.vocab, (MULTI_B, MULTI_S),
+                                 generator=gen, device=device,
+                                 dtype=torch.int32)
+            dec_toks = [torch.randint(0, cfg.vocab, (MULTI_B, 1),
+                                      generator=gen, device=device,
+                                      dtype=torch.int32)
+                        for _ in range(MULTI_DECODE)]
+            params = Model(cfg, device).init(
+                torch.Generator(device=device).manual_seed(0))
+            got = _serve_steps(cfg, mesh, device, params, toks, dec_toks,
+                               MULTI_CAP)
+            full = [got[0].full_tensor()] + [x.full_tensor() for x in got[2]]
+            if rank == 0:
+                one = _serve_steps(cfg, device, device, params, toks,
+                                   dec_toks, MULTI_CAP)
+                want = [one[0]] + one[2]
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(full, want))
+                res.append({"arch": arch, "layers": cfg.n_layers,
+                            "sharding": sharding, "max_abs_err": err,
+                            "mesh_ms": [got[3], got[4]],
+                            "one_ms": [one[3], one[4]]})
+            del params, got, full
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phase(device, launches, smi):
+    """The mesh step builders on the card: a one-rank NCCL group (a
+    ``file://`` store, no network) and a (1, 1) mesh; qwen1.5-0.5b at
+    full width and depth (prefill B=4 S=2048, 16 decode steps, 4 train
+    steps) and recurrentgemma-2b and rwkv6-7b at full width cut as
+    ``TRAIN_FAMILIES`` cuts them (prefill, decode), each against the
+    device builders: equal bit for bit, or the leaf named and held to
+    3e-2; flash, decode_attention, rglru_scan and rwkv6_wkv launched on
+    the mesh runs. With two cards or more, one NCCL rank a card on a
+    (1, n) mesh runs ``MULTI_CARD`` against the one-card builders."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="sharded_")
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "store"), rank=0, world_size=1)
+    counts = {}
+    try:
+        mesh = make_local_mesh((1, 1))
+        for arch, depth, kinds in SHARDED_ARCHS:
+            sharded_arch(device, mesh, smi, arch, depth, kinds, counts)
+    finally:
+        dist.destroy_process_group()
+    log(f"[sharded] launches on the mesh runs: {counts}")
+    count_path("sharded", counts, launches)
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[sharded] multi-rank cases not run: this machine shows {n} "
+            "card (they need one rank a card); their collectives are held "
+            "to the reference on CPU ranks by tests/test_torch_sharded_"
+            "steps*.py and tests/test_torch_moe_ep.py")
+    else:
+        import torch.multiprocessing as mp
+        out = os.path.join(tmp, "multi.json")
+        mp.start_processes(multi_card_rank, nprocs=n, join=True,
+                           start_method="spawn",
+                           args=(n, os.path.join(tmp, "store_multi"), out))
+        with open(out) as f:
+            for r in json.load(f):
+                log(f"[sharded] {smi}: (1, {n}) mesh, {r['arch']} "
+                    f"({r['layers']} layers, fp32, {r['sharding'] or 'rules'}"
+                    f"): prefill and {MULTI_DECODE} decode logits within "
+                    f"{r['max_abs_err']:.3g} of the one-card run; prefill "
+                    f"/ decode ms {r['mesh_ms']} vs {r['one_ms']}")
+                if not r["max_abs_err"] <= MULTI_TOL:
+                    raise AssertionError(f"sharded multi-card {r['arch']}: "
+                                         f"{r['max_abs_err']}")
+    log(f"[sharded] took {time.perf_counter() - t0:.1f}s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4188,6 +4495,8 @@ def main():
     phase_done("autoscaler")
     long_context_phase(device, launches, smi)
     phase_done("long-context")
+    sharded_phase(device, launches, smi)
+    phase_done("sharded")
 
     if "--profile" in sys.argv[1:]:
         model = Model(cfg, device)

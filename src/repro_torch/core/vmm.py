@@ -432,8 +432,9 @@ class VMM:
         ``None``: state sharded across cards is not ported."""
         if shardings_fn is not None:
             raise NotImplementedError(
-                "shardings_fn: state sharded across cards is not ported "
-                "(ROADMAP item 9)")
+                "shardings_fn: re-sharding a restored state over a "
+                "multi-card slice is not ported yet (ROADMAP item 9.1, "
+                "multi-card VSlices)")
         rec = self.oplog.begin(t.name, "migrate",
                                {"from": t.vslice.spec.shape,
                                 "to": new_shape or t.vslice.spec.shape})

@@ -12,7 +12,7 @@ Programs run on one card: a slice whose grid entries all name one card
 (a (1, 4) slice of a 2×4 view of one card) runs there, on k shares of
 that card's memory; a slice whose entries name two or more cards is
 carved and checked like any other, but asking it for its ``device``
-raises (programs sharded across cards are not ported).
+raises (a VSlice over several cards is ROADMAP item 9.1).
 """
 from __future__ import annotations
 
@@ -84,8 +84,10 @@ class VSlice:
         cards = self.cards
         if len(cards) != 1:
             raise NotImplementedError(
-                f"slice {self.spec.shape} spans {len(cards)} cards: programs "
-                "sharded across cards are not ported (ROADMAP item 9)")
+                f"slice {self.spec.shape} spans {len(cards)} cards: a VSlice "
+                "over several cards (its programs on the slice's mesh) is "
+                "not ported yet (ROADMAP item 9.1, multi-card VSlices; the "
+                "step builders already take a DeviceMesh)")
         return cards[0]
 
     @property

@@ -249,7 +249,7 @@ def attention_core(q, k, v, *, q_pos, k_pos, window=0, causal=True):
 
 
 def attn_full(cfg, p, x, positions, cache_capacity=0, window=0,
-              causal=True, make_cache=True):
+              causal=True, make_cache=True, mesh=None):
     """Causal (sliding-window when ``window > 0``) self-attention over a
     full sequence through the flash op; with ``causal=False`` (the
     encoder) through the plain core, as the reference does (its flash
@@ -259,18 +259,30 @@ def attn_full(cfg, p, x, positions, cache_capacity=0, window=0,
     engine scatters into its pages; with C > S it is padded with zeros to
     C slots; with C < S it keeps the last C tokens, rolled so that
     position p lives at ring slot p % C (``attention.py:252-262`` of the
-    reference)."""
+    reference).
+
+    On a mesh (``mesh``, a rank's :class:`RankMesh` narrowed to the
+    layer's mixer, whose specs say what the rules split) the rank runs its
+    own q-heads (all of them when the rules leave ``wq`` replicated),
+    against its own K/V heads, or, when the rules leave K/V replicated
+    (Hkv not divisible by the model axis), against the K/V heads its
+    q-heads read; the out-projection's partial sums meet in one
+    ``all_reduce`` over "model". Its cache is its block under the
+    rules: its K/V heads, or its block of the ring's sequence
+    (split-KV)."""
     S = x.shape[1]
     q, k, v = _project_qkv(cfg, p, x)
     q, k = _rope(cfg, q, k, positions)
+    kq, vq = _kv_for_local_heads(cfg, mesh, q, k, v)
     if causal:
-        y = flash_attention_op(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=True, window=window)
+        y = flash_attention_op(q.contiguous(), kq.contiguous(),
+                               vq.contiguous(), causal=True, window=window)
     else:
-        y = attention_core(q, k, v, q_pos=positions, k_pos=positions,
+        y = attention_core(q, kq, vq, q_pos=positions, k_pos=positions,
                            window=window, causal=False)
+    y = _out_proj_mesh(cfg, p, y, mesh)
     if not make_cache:
-        return _out_proj(cfg, p, y), None
+        return y, None
     C = cache_capacity or S
     if C >= S:
         pad = (0, 0, 0, 0, 0, C - S)
@@ -279,7 +291,56 @@ def attn_full(cfg, p, x, positions, cache_capacity=0, window=0,
         shift = (S - C) % C
         cache = {"k": torch.roll(k[:, S - C:], shift, dims=1),
                  "v": torch.roll(v[:, S - C:], shift, dims=1)}
-    return _out_proj(cfg, p, y), cache
+    if mesh is not None:
+        seq_axes = _cache_seq_axes(cfg, mesh, C)
+        cache = {kk: mesh.block(t, 1, seq_axes).contiguous()
+                 for kk, t in cache.items()}
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# A rank's heads on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _heads_split(mesh):
+    """Whether this rank holds a block of the q-heads (the rules shard
+    ``wq`` over "model")."""
+    return mesh is not None and mesh.split("wq", 1)
+
+
+def _kv_for_local_heads(cfg, mesh, q, k, v):
+    """K/V heads for the q-heads ``q`` holds. With both split (or none)
+    they are ``k``/``v`` as they are; with q split and K/V replicated,
+    the K/V heads that the rank's q-heads read: one contiguous block
+    when the groups allow it, else one K/V head per q-head."""
+    if not _heads_split(mesh) or mesh.split("wk", 1):
+        return k, v
+    hq = q.shape[2]
+    G = cfg.n_heads // cfg.n_kv_heads
+    first = mesh.tp_rank * hq
+    lo, hi = first // G, (first + hq - 1) // G + 1
+    if hq % (hi - lo) == 0 and (hq // (hi - lo) == G or hi - lo == 1):
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = (first + torch.arange(hq, device=k.device)) // G
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _out_proj_mesh(cfg, p, o, mesh):
+    """The out-projection of this rank's heads; partial sums over the
+    q-heads meet in an ``all_reduce`` over "model"."""
+    y = _out_proj(cfg, p, o)
+    if _heads_split(mesh):
+        y = mesh.all_reduce(y, ("model",))
+    return y
+
+
+def _cache_seq_axes(cfg, mesh, C):
+    """The mesh axes the rules split one layer's ring sequence over
+    (reference ``_cache_seq_axes``, ``attention.py:442-456``, after the
+    rules' divisibility check): empty when the K/V heads split, or when
+    the sequence stays replicated."""
+    return mesh.kv_seq_axes(C, cfg.n_kv_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +356,7 @@ def position_vector(pos, device):
     return torch.tensor([int(pos)], dtype=torch.long, device=device)
 
 
-def attn_decode(cfg, p, x1, cache, pos, pvec, window=0):
+def attn_decode(cfg, p, x1, cache, pos, pvec, window=0, mesh=None):
     """x1 (B,1,D); cache ring {"k","v"} (B,C,Hkv,hd) — **updated in
     place**: the new token's K/V are written at slot ``pos % C`` with
     ``index_copy_`` on a device index (no host sync), then the token
@@ -306,16 +367,103 @@ def attn_decode(cfg, p, x1, cache, pos, pvec, window=0):
     window; the window still reaches the op, since a reference cache
     carried over by the bridge keeps ``capacity`` slots. ``pos`` is the
     shared position (int or 0-d int32 tensor, handed to the kernel as
-    is); ``pvec`` the same as a (1,) int64 tensor. Returns y (B,1,D)."""
-    C = cache["k"].shape[1]
+    is); ``pvec`` the same as a (1,) int64 tensor. Returns y (B,1,D).
+
+    On a mesh whose rules split the cache's K/V heads, the rank runs
+    the op on its own heads; when they split the ring's sequence, the
+    split-KV path (:func:`_attn_decode_splitk`, with
+    ``cfg.sharding.decode_splitk``) runs instead."""
     q, k, v = _project_qkv(cfg, p, x1)
     q, k = _rope(cfg, q, k, pvec)
+    if mesh is not None:
+        C = _ring_slots(cfg, mesh, window, cache["k"].shape[1])
+        seq_axes = _cache_seq_axes(cfg, mesh, C)
+        if seq_axes:
+            if not cfg.sharding.decode_splitk:
+                raise NotImplementedError(
+                    f"{cfg.name}: a sequence-split decode cache without "
+                    "decode_splitk (the reference's GSPMD gathers the "
+                    "cache) is not ported")
+            o = _attn_decode_splitk(cfg, q, k, v, cache, pvec, C, window,
+                                    mesh, seq_axes)
+            return _out_proj_mesh(cfg, p, _local_heads(o, mesh), mesh)
+    C = cache["k"].shape[1]
     slot = torch.remainder(pvec, C)
     cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
     cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-    o = decode_attention_op(q.contiguous(), cache["k"], cache["v"], pos,
-                            window=window)
-    return _out_proj(cfg, p, o)
+    ck, cv = _kv_for_local_heads(cfg, mesh, q, cache["k"], cache["v"])
+    o = decode_attention_op(q.contiguous(), ck.contiguous(),
+                            cv.contiguous(), pos, window=window)
+    return _out_proj_mesh(cfg, p, o, mesh)
+
+
+def _ring_slots(cfg, mesh, window, c_local):
+    """A ring's global slots from the rank's ``c_local`` of them: the
+    port's ring of this layer (``min(window, capacity)`` for a window)
+    or, for a ring carried over from the reference (which keeps
+    ``capacity`` slots under a window), the capacity — whichever the
+    rules would leave ``c_local`` of on this rank."""
+    cap = mesh.capacity
+    if cap is None:
+        raise ValueError("a decode step on a mesh needs its ring capacity: "
+                         "RankMesh(mesh, batch, capacity)")
+    for C in (min(window, cap) if window else cap, cap):
+        if C // mesh.size(_cache_seq_axes(cfg, mesh, C)) == c_local:
+            return C
+    raise ValueError(f"a ring of {c_local} local slots fits neither "
+                     f"capacity {cap} nor window {window}")
+
+
+def _local_heads(o, mesh):
+    """This rank's block of all heads ``o`` (B, 1, Hq, hd) when the rules
+    split the q-heads over "model" (else ``o`` itself)."""
+    if not _heads_split(mesh):
+        return o
+    return mesh.block(o, 2, ("model",))
+
+
+def _attn_decode_splitk(cfg, q, k_new, v_new, cache, pvec, C, window,
+                        mesh, seq_axes):
+    """Split-KV decode (reference ``attention.py:458-530``): each rank
+    owns a contiguous block of the ring's sequence, ``C / n`` slots from
+    ``index · C / n`` over the ``seq_axes`` flattened. Only the owner of
+    slot ``pos % C`` writes the new K/V (in place, no host sync: the
+    others write their slot's own value back). Each rank takes the
+    masked partial softmax of all q-heads (gathered over "model" when
+    the rank holds a block of them) over its block — the window and the
+    wrapped ring (``pos >= C``) as the reference masks them — then the
+    maxima meet in an ``all_reduce(MAX)``, the sums and the weighted
+    values in ``all_reduce(SUM)``s over ``seq_axes``, and the rank
+    divides. → o (B, 1, Hq, hd) for all heads, in q's dtype."""
+    if _heads_split(mesh):
+        q = mesh.all_gather(q, ("model",), 2)
+    ck, cv = cache["k"], cache["v"]
+    B, _, Hq, hd = q.shape
+    C_loc, Hkv = ck.shape[1], ck.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    base = mesh.index(seq_axes) * C_loc
+    slot = torch.remainder(pvec, C)                       # (1,)
+    own = (slot >= base) & (slot < base + C_loc)
+    lslot = (slot - base).clamp(0, C_loc - 1)
+    for t, new in ((ck, k_new), (cv, v_new)):
+        keep = t.index_select(1, lslot)
+        t.index_copy_(1, lslot, torch.where(own[:, None, None, None],
+                                            new.to(t.dtype), keep))
+    qg = q.reshape(B, Hkv, G, hd)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, ck).float() * scale
+    gidx = base + torch.arange(C_loc, device=q.device)
+    valid = (gidx <= pvec) | (pvec >= C)
+    if window > 0:
+        valid &= torch.remainder(slot - gidx, C) < window
+    s = torch.where(valid, s, _NEG)
+    m = mesh.all_reduce(s.amax(dim=-1), seq_axes, op="max")
+    pr = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    l = mesh.all_reduce(pr.sum(dim=-1), seq_axes)
+    o = torch.einsum("bhgk,bkhd->bhgd", pr.to(cv.dtype), cv).float()
+    o = mesh.all_reduce(o, seq_axes)
+    o = o / l.clamp_min(1e-30)[..., None]
+    return o.reshape(B, Hq, hd)[:, None].to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

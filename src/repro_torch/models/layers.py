@@ -164,25 +164,67 @@ def abs_position_vector(pos, d):
 # ---------------------------------------------------------------------------
 
 
-def apply_ffn(cfg, p, x, kind):
+def apply_ffn(cfg, p, x, kind, mesh=None):
     """swiglu, or the GELU MLP with biases in ``jax.nn.gelu``'s default
-    tanh form (the exact erf form differs by ~1e-3)."""
+    tanh form (the exact erf form differs by ~1e-3). On a mesh whose
+    rules split the hidden width over "model" (``w_down``'s rows), the
+    rank runs
+    its columns and rows, and the partial sums meet in one
+    ``all_reduce`` (``b_down`` is added after it)."""
     cd = dt(cfg.compute_dtype)
     x = x.to(cd)
+    split = mesh is not None and mesh.split("w_down", 0)
     if kind == "swiglu":
         g = x @ p["w_gate"].to(cd)
         u = x @ p["w_up"].to(cd)
-        return (F.silu(g) * u) @ p["w_down"].to(cd)
+        y = (F.silu(g) * u) @ p["w_down"].to(cd)
+        return mesh.all_reduce(y, ("model",)) if split else y
     if kind == "gelu":
         h = F.gelu(x @ p["w_up"].to(cd) + p["b_up"].to(cd),
                    approximate="tanh")
-        return h @ p["w_down"].to(cd) + p["b_down"].to(cd)
+        y = h @ p["w_down"].to(cd)
+        if split:
+            y = mesh.all_reduce(y, ("model",))
+        return y + p["b_down"].to(cd)
     raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------
+
+
+def sharded_cross_entropy(logits, labels, mask, mesh, split):
+    """:func:`softmax_cross_entropy` on a mesh, over the rank's batch
+    rows; with ``split`` the rank holds a block of the vocab (the
+    ``mesh.tp_rank``-th of the columns), and the maxima meet in an
+    ``all_reduce(MAX)``, the exponential sums and the picked logits in
+    ``all_reduce`` over "model", and the masked sums and counts over the
+    batch axes when the rows are split there. With nothing split over
+    more than one rank it is :func:`softmax_cross_entropy` itself."""
+    axes = [a for a in mesh.batch_spec_axes() if mesh.sizes[a] > 1]
+    if not split and not axes:
+        return softmax_cross_entropy(logits, labels, mask)
+    lf = logits.float()
+    V = lf.shape[-1]
+    lo = mesh.tp_rank * V if split else 0
+    m = lf.detach().amax(dim=-1)
+    if split:
+        m = mesh.all_reduce(m, ("model",), op="max")
+    z = torch.exp(lf - m[..., None]).sum(-1)
+    ids = labels.long() - lo
+    ok = (ids >= 0) & (ids < V)
+    picked = lf.gather(-1, ids.clamp(0, V - 1)[..., None])[..., 0]
+    picked = torch.where(ok, picked, 0.0)
+    if split:
+        z = mesh.all_reduce(z, ("model",))
+        picked = mesh.all_reduce(picked, ("model",))
+    nll = torch.log(z) + m - picked
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    num, n = (nll * mask).sum(), mask.sum()
+    num = mesh.all_reduce(num, axes)
+    n = mesh.all_reduce(n, axes).clamp_min(1.0)
+    return num / n, n
 
 
 def softmax_cross_entropy(logits, labels, mask=None):

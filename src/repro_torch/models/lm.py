@@ -323,47 +323,51 @@ def _keep_live(rows, new, live):
 
 
 def _mixer_full(cfg, spec, p, h, positions, capacity, row0=None,
-                causal=True, make_cache=True):
+                causal=True, make_cache=True, mesh=None):
     """→ (y, K/V cache or None, mixer rows or None); no cache and no rows
-    without ``make_cache``."""
+    without ``make_cache``. ``mesh`` (a rank's ``RankMesh`` narrowed to
+    the mixer's parameters) runs the rank's blocks (see each mixer)."""
     if spec.is_attn:
         y, kv = attn.attn_full(cfg, p, h, positions, capacity,
                                window=_window(cfg, spec), causal=causal,
-                               make_cache=make_cache)
+                               make_cache=make_cache, mesh=mesh)
         return y, kv, None
     if spec.mixer == "rglru":
         y, mc = rec.rglru_full(
             cfg, p, h, h0=row0["h"] if row0 else None,
-            conv0=row0["conv"] if row0 else None, make_cache=make_cache)
+            conv0=row0["conv"] if row0 else None, make_cache=make_cache,
+            mesh=mesh)
     else:
         y, mc = rec.rwkv_tmix_full(cfg, p, h, cache=row0,
-                                   make_cache=make_cache)
+                                   make_cache=make_cache, mesh=mesh)
     return y, None, mc
 
 
-def _ffn_full(cfg, spec, p, h2, row0=None, make_cache=True):
+def _ffn_full(cfg, spec, p, h2, row0=None, make_cache=True, mesh=None):
     """→ (y, ffn rows or None, the MoE's aux loss or None); serving
     leaves the aux loss unused."""
     if spec.ffn == "channelmix":
         y, rows = rec.channelmix_full(cfg, p, h2, cache=row0,
-                                      make_cache=make_cache)
+                                      make_cache=make_cache, mesh=mesh)
         return y, rows, None
     if spec.ffn == "moe":
-        y, aux = moe_mod.apply_moe(cfg, p, h2)
+        y, aux = moe_mod.apply_moe(cfg, p, h2, mesh=mesh)
         return y, None, aux
-    return apply_ffn(cfg, p, h2, kind=spec.ffn), None, None
+    return apply_ffn(cfg, p, h2, kind=spec.ffn, mesh=mesh), None, None
 
 
 def apply_layer_full(cfg, spec, p, x, positions, capacity=0, enc_out=None,
-                     causal=True, make_cache=True):
+                     causal=True, make_cache=True, mesh=None):
     """Full-sequence layer → (x', K/V of this layer or None, its rows,
     its MoE aux loss or None); an enc-dec decoder layer attends to
     ``enc_out`` after its mixer and keeps the cross K/V in its rows.
-    Without ``make_cache`` (training) no K/V and no rows are kept."""
+    Without ``make_cache`` (training) no K/V and no rows are kept.
+    ``mesh`` is a rank's ``RankMesh`` narrowed to the layer."""
     h = apply_norm(cfg, p["norm1"], x)
     y, kv, mrows = _mixer_full(cfg, spec, p["mixer"], h, positions,
                                capacity, causal=causal,
-                               make_cache=make_cache)
+                               make_cache=make_cache,
+                               mesh=_at(mesh, "mixer"))
     x = x + y.to(x.dtype)
     rows = {}
     if mrows is not None:
@@ -376,10 +380,16 @@ def apply_layer_full(cfg, spec, p, x, positions, capacity=0, enc_out=None,
             rows["cross"] = ckv
     h2 = apply_norm(cfg, p["norm2"], x)
     y2, frows, aux = _ffn_full(cfg, spec, p["ffn"], h2,
-                               make_cache=make_cache)
+                               make_cache=make_cache, mesh=_at(mesh, "ffn"))
     if frows is not None:
         rows["ffn"] = frows
     return x + y2.to(x.dtype), kv, rows, aux
+
+
+def _at(mesh, *keys):
+    """A rank's mesh view narrowed to the parameters at ``keys`` (None
+    off a mesh)."""
+    return None if mesh is None else mesh.at(*keys)
 
 
 def _copy_rows(rows, new):
@@ -389,23 +399,27 @@ def _copy_rows(rows, new):
         leaf.copy_(new[name].to(leaf.dtype))
 
 
-def apply_layer_decode_ring(cfg, spec, p, x, cache, rows, pos, pvec):
+def apply_layer_decode_ring(cfg, spec, p, x, cache, rows, pos, pvec,
+                            mesh=None):
     h = apply_norm(cfg, p["norm1"], x)
     if spec.is_attn:
         y = attn.attn_decode(cfg, p["mixer"], h, cache, pos, pvec,
-                             window=_window(cfg, spec))
+                             window=_window(cfg, spec),
+                             mesh=_at(mesh, "mixer"))
     else:
         step = rec.rglru_decode if spec.mixer == "rglru" \
             else rec.rwkv_tmix_decode
-        y, mc = step(cfg, p["mixer"], h, rows["mixer"])
+        y, mc = step(cfg, p["mixer"], h, rows["mixer"],
+                     mesh=_at(mesh, "mixer"))
         _copy_rows(rows["mixer"], mc)
     x = _cross_decode(cfg, spec, p, x + y.to(x.dtype), rows)
     h2 = apply_norm(cfg, p["norm2"], x)
     if spec.ffn == "channelmix":
-        y2, fc = rec.channelmix_decode(cfg, p["ffn"], h2, rows["ffn"])
+        y2, fc = rec.channelmix_decode(cfg, p["ffn"], h2, rows["ffn"],
+                                       mesh=_at(mesh, "ffn"))
         _copy_rows(rows["ffn"], fc)
     else:
-        y2 = _ffn_full(cfg, spec, p["ffn"], h2)[0]
+        y2 = _ffn_full(cfg, spec, p["ffn"], h2, mesh=_at(mesh, "ffn"))[0]
     return x + y2.to(x.dtype)
 
 
@@ -514,13 +528,23 @@ def _maybe_remat(cfg, fn, layers):
             or not _requires_grad(layers)):
         return fn
 
-    def remat(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+    def remat(*args, **kw):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
     return remat
 
 
+def _apply_prepared(cfg, spec, p, *args, prepare=None, i=0):
+    """``apply_layer_full`` on layer ``i``'s parameters as ``prepare``
+    makes them: inside a remat'd layer, so a recompute makes them again
+    rather than keeping them."""
+    if prepare is not None:
+        p = prepare(i, p)
+    return apply_layer_full(cfg, spec, p, *args)
+
+
 def apply_stack_full(cfg, specs, layers, x, positions, capacity=0,
-                     enc_out=None, causal=True, make_cache=True):
+                     enc_out=None, causal=True, make_cache=True, mesh=None,
+                     prepare=None):
     """→ (x, caches, aux): ``aux`` the sum of the MoE layers' aux losses
     (fp32, 0 without MoE), as in the reference; ``caches`` are
     ``{"k","v"}`` stacked (La, B, C, Hkv, hd) over the attention layers
@@ -532,17 +556,22 @@ def apply_stack_full(cfg, specs, layers, x, positions, capacity=0,
     has rows. ``enc_out`` feeds the cross attention of an enc-dec
     decoder; the encoder runs with ``causal=False``. Without
     ``make_cache`` (the training forward and the encoder) ``caches`` is
-    None and each layer runs under :func:`_maybe_remat`."""
+    None and each layer runs under :func:`_maybe_remat`. ``mesh`` (a
+    rank's ``RankMesh`` narrowed to ``layers``) runs every layer on the
+    rank's blocks;
+    ``prepare(i, p)`` gives layer ``i`` its parameters (the mesh's
+    ZeRO-3 gathers)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if capacity:
         capacity = ring_capacity(cfg, specs, capacity) or capacity
-    layer = apply_layer_full
+    layer = _apply_prepared
     if not make_cache:
         layer = _maybe_remat(cfg, layer, layers)
     ks, vs, rows = [], [], []
-    for spec, p in zip(specs, layers):
+    for i, (spec, p) in enumerate(zip(specs, layers)):
         x, kv, r, a = layer(cfg, spec, p, x, positions, capacity, enc_out,
-                            causal, make_cache)
+                            causal, make_cache, _at(mesh, i),
+                            prepare=prepare, i=i)
         if a is not None:
             aux = aux + a
         if kv is not None:
@@ -559,14 +588,20 @@ def apply_stack_full(cfg, specs, layers, x, positions, capacity=0,
     return x, caches, aux
 
 
-def apply_stack_decode_ring(cfg, specs, layers, x, caches, pos, pvec):
+def apply_stack_decode_ring(cfg, specs, layers, x, caches, pos, pvec,
+                            mesh=None, prepare=None):
     """One token through every layer against the ring caches of
     :func:`init_stack_cache`, updated in place: K/V at slot ``pos % C``,
-    every recurrent row. ``pvec`` is ``pos`` as a (1,) int64 tensor."""
+    every recurrent row. ``pvec`` is ``pos`` as a (1,) int64 tensor;
+    ``mesh`` runs the rank's blocks of the caches, ``prepare`` as in
+    :func:`apply_stack_full`."""
     rows = caches.get("rows") or [{}] * len(specs)
-    for spec, p, a, r in zip(specs, layers, attn_index(specs), rows):
+    for i, (spec, p, a, r) in enumerate(zip(specs, layers,
+                                            attn_index(specs), rows)):
+        if prepare is not None:
+            p = prepare(i, p)
         x = apply_layer_decode_ring(cfg, spec, p, x, _pools(caches, a), r,
-                                    pos, pvec)
+                                    pos, pvec, _at(mesh, i))
     return x
 
 

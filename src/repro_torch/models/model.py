@@ -32,6 +32,7 @@ from repro_torch.models import lm
 from repro_torch.models.layers import (abs_position_vector, add_abs_positions,
                                        apply_norm, dense_init, dt,
                                        embed_init, init_norm,
+                                       sharded_cross_entropy,
                                        softmax_cross_entropy)
 from repro_torch.models.recurrent import FP32_PARAMS
 
@@ -51,16 +52,49 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-class Model:
-    """Init/apply facade for one architecture on one device."""
+def mesh_device(mesh) -> torch.device:
+    """The device a rank of ``mesh`` (a ``DeviceMesh``, or a rank's view
+    of one with the ``DeviceMesh`` as ``.mesh``) runs on: its card, or
+    the CPU for a CPU mesh."""
+    dm = mesh if hasattr(mesh, "device_type") else mesh.mesh
+    if dm.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(dm.device_type)
 
-    def __init__(self, cfg, device=None):
+
+class Model:
+    """Init/apply facade for one architecture on one device, or on one
+    rank of a mesh.
+
+    With ``mesh`` (a ``parallel.rank_mesh.RankMesh``, which the step
+    builders make: a rank's view of a ``DeviceMesh`` with the step's
+    global batch, ring capacity and the placements of its parameters)
+    the full-sequence forward, the loss, ``prefill`` and the ring
+    ``decode`` take and return the rank's **local blocks** under the
+    partition rules: its batch rows, its vocab block of the embedding,
+    the head and the logits, its heads, channels and experts, and, under
+    ``fsdp_params``, its block of their d_model rows (gathered over
+    "data" where a layer runs). What is split is read from the view's
+    specs. The collectives that join the blocks are explicit (see each
+    layer). The paged serving paths stay on one device."""
+
+    def __init__(self, cfg, device=None, mesh=None):
         if cfg.logit_softcap or cfg.tie_embeddings:
             raise NotImplementedError(
                 f"{cfg.name}: logit soft-capping and tied embeddings are "
                 "not ported (no configuration of the repo uses them)")
         self.cfg = cfg
+        self.mesh = None
+        if mesh is not None:
+            if cfg.family == "vlm" or cfg.is_encdec:
+                raise NotImplementedError(
+                    f"{cfg.name}: the VLM projector and the enc-dec "
+                    "encoder on a mesh are not ported")
+            self.mesh = mesh
+            if device is None:
+                device = mesh_device(mesh)
         self.device = resolve_device(device)
+        self._fsdp = None if mesh is None else mesh.fsdp
         self.specs = lm.layer_specs(cfg)
         self.enc_specs = None
         if cfg.is_encdec:
@@ -145,13 +179,57 @@ class Model:
         return cast(params)
 
     # ------------------------------------------------------------------
+    # ZeRO-3 on a mesh (``fsdp_params``)
+    # ------------------------------------------------------------------
+    def _fsdp_gather(self, tree, specs):
+        """The leaves that ``fsdp_params`` splits over "data" (a d_model
+        row or column: ``specs``, the mesh view's ``fsdp`` tree),
+        gathered whole over "data" for this use (backward: a
+        reduce-scatter)."""
+        if isinstance(tree, dict):
+            return {k: self._fsdp_gather(v, specs[k])
+                    for k, v in tree.items()}
+        for d, entry in enumerate(specs):
+            if entry == "data":
+                return self.mesh.all_gather(tree, ("data",), d)
+        return tree
+
+    def _prepare(self):
+        """``(i, p)`` → layer ``i``'s parameters as the layer uses them
+        (None: as they are)."""
+        if self._fsdp is None:
+            return None
+        return lambda i, p: self._fsdp_gather(p, self._fsdp["layers"][i])
+
+    def _top(self, params, name):
+        """A top-level leaf (``tok_embed``, ``lm_head``) as it is used."""
+        if self._fsdp is None:
+            return params[name]
+        return self._fsdp_gather(params[name], self._fsdp[name])
+
+    # ------------------------------------------------------------------
     # Embedding / head
     # ------------------------------------------------------------------
+    def _lookup(self, params, tokens):
+        """Token embeddings in the compute dtype. On a mesh whose rules
+        split the vocab, the rank looks up the tokens of its block (zero
+        rows for the others) and the rows meet in an ``all_reduce`` over
+        "model" (exact: one row is nonzero)."""
+        table = self._top(params, "tok_embed")
+        cd = dt(self.cfg.compute_dtype)
+        if self.mesh is None or not self.mesh.split("tok_embed", 0):
+            return table[tokens].to(cd)
+        V = table.shape[0]
+        ids = tokens.long() - self.mesh.tp_rank * V
+        ok = (ids >= 0) & (ids < V)
+        x = torch.where(ok[..., None], table[ids.clamp(0, V - 1)], 0.0)
+        return self.mesh.all_reduce(x.to(cd), ("model",))
+
     def _embed_tokens(self, params, tokens, positions):
         """Token embeddings in the compute dtype; without rope, plus the
         sinusoidal vectors of ``positions`` ((S,) for a chunk, (B, 1) for
         a decode step)."""
-        x = params["tok_embed"][tokens].to(dt(self.cfg.compute_dtype))
+        x = self._lookup(params, tokens)
         if self.cfg.use_rope:
             return x
         return x + abs_position_vector(positions, self.cfg.d_model).to(
@@ -188,7 +266,7 @@ class Model:
         token embeddings after the VLM's projected patches; sinusoidal
         positions over the whole sequence without rope."""
         cfg = self.cfg
-        x = params["tok_embed"][batch["tokens"]].to(dt(cfg.compute_dtype))
+        x = self._lookup(params, batch["tokens"])
         if cfg.family == "vlm":
             pre = self._project_patches(params, batch["patches"])
             x = torch.cat([pre, x], dim=1)
@@ -198,13 +276,23 @@ class Model:
             x = add_abs_positions(x)
         return x, enc_out
 
+    def _vocab_split(self):
+        """Whether this rank holds a block of the head's vocab columns."""
+        return self.mesh is not None and self.mesh.split("lm_head", 1)
+
+    def _layers_mesh(self):
+        return None if self.mesh is None else self.mesh.at("layers")
+
     def _lm_logits(self, params, x):
+        """Logits of the rank's vocab block on a mesh that splits it."""
         cfg = self.cfg
         cd = dt(cfg.compute_dtype)
         x = apply_norm(cfg, params["final_norm"], x)
-        logits = x.to(cd) @ params["lm_head"].to(cd)
+        logits = x.to(cd) @ self._top(params, "lm_head").to(cd)
         if cfg.padded_vocab != cfg.vocab:      # mask padded vocab columns
-            pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+            V = logits.shape[-1]
+            lo = self.mesh.tp_rank * V if self._vocab_split() else 0
+            pad = torch.arange(lo, lo + V, device=x.device) >= cfg.vocab
             zero = torch.zeros((), dtype=logits.dtype, device=x.device)
             logits = logits + torch.where(pad, torch.full_like(zero, -1e30),
                                           zero)
@@ -224,7 +312,9 @@ class Model:
         positions = torch.arange(x.shape[1], device=x.device)
         x, _, aux = lm.apply_stack_full(self.cfg, self.specs,
                                         params["layers"], x, positions,
-                                        enc_out=enc_out, make_cache=False)
+                                        enc_out=enc_out, make_cache=False,
+                                        mesh=self._layers_mesh(),
+                                        prepare=self._prepare())
         return self._lm_logits(params, x), aux
 
     def loss(self, params, batch):
@@ -232,8 +322,13 @@ class Model:
         the whole sequence, image rows included (the pipeline's mask is
         0 there) → (ce + aux, {"ce", "aux", "n_tok"})."""
         logits, aux = self.forward(params, batch)
-        ce, n_tok = softmax_cross_entropy(logits, batch["labels"],
-                                          batch.get("mask"))
+        if self.mesh is not None:
+            ce, n_tok = sharded_cross_entropy(
+                logits, batch["labels"], batch.get("mask"), self.mesh,
+                self._vocab_split())
+        else:
+            ce, n_tok = softmax_cross_entropy(logits, batch["labels"],
+                                              batch.get("mask"))
         return ce + aux, {"ce": ce, "aux": aux, "n_tok": n_tok}
 
     # ------------------------------------------------------------------
@@ -251,7 +346,9 @@ class Model:
         positions = torch.arange(x.shape[1], device=x.device)
         x, caches, _ = lm.apply_stack_full(self.cfg, self.specs,
                                            params["layers"], x, positions,
-                                           capacity or 0, enc_out=enc_out)
+                                           capacity or 0, enc_out=enc_out,
+                                           mesh=self._layers_mesh(),
+                                           prepare=self._prepare())
         return self._lm_logits(params, x[:, -1:])[:, 0], caches
 
     # ------------------------------------------------------------------
@@ -266,7 +363,8 @@ class Model:
         x = self._embed_tokens(params, token, pvec[None])
         x = lm.apply_stack_decode_ring(self.cfg, self.specs,
                                        params["layers"], x, caches, pos,
-                                       pvec)
+                                       pvec, self._layers_mesh(),
+                                       self._prepare())
         return self._lm_logits(params, x[:, -1:])[:, 0], caches
 
     def init_cache(self, batch_size, capacity):

@@ -98,12 +98,14 @@ def _row_blocks(p):
 
 
 @torch.no_grad()
-def update(opt: OptConfig, grads, state, params):
+def update(opt: OptConfig, grads, state, params, grad_norm=None):
     """One AdamW step → (new_params, new_state, {"lr", "grad_norm"});
-    the inputs are not modified."""
+    the inputs are not modified. ``grad_norm`` is the gradients' global
+    norm when the caller has it (a rank of a mesh holds only blocks of
+    the tree)."""
     step = state["step"] + 1
     lr = schedule(opt, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(opt.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     b1, b2 = opt.beta1, opt.beta2
