@@ -220,6 +220,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1705,17 +1706,21 @@ def elastic_mux_phase(device, launches, smi):
     raises LegalityError and is audited; one warm hit; the scheduler
     completes every submitted op; each pool holds 4/8 of the card's free
     memory; under ``slo`` attainment is reported; the ring decode kernel
-    launches on every decode step of every layer."""
+    launches on every decode step of every layer. → alice's logits
+    under ``wfq`` (CPU)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import common
     ex = example("torch_multi_tenant_serving")
     t0 = time.perf_counter()
+    alice = None
     for policy in ("wfq", "slo"):
         torch.cuda.empty_cache()
         common.reset_launches()
         out = ex.main(["--device", "cuda", "--full", "--policy", policy])
         counts = dict(common.LAUNCHES)
+        if policy == "wfq":
+            alice = out["tenants"]["alice"]["logits"]
         path = "elastic-mux"
         for name, t in out["tenants"].items():
             sched = out["sched"][name]
@@ -1754,6 +1759,7 @@ def elastic_mux_phase(device, launches, smi):
                                  f"times, want {2 * ex.TOKENS * layers}")
         count_path(path, counts, launches)
     log(f"[{path}] took {time.perf_counter() - t0:.1f}s")
+    return alice
 
 
 #: the failover's cut: internlm2-1.8b at full width, 2 of 24 layers,
@@ -4293,8 +4299,9 @@ def sharded_arch(device, mesh, smi, arch, depth, kinds, counts):
 def multi_card_rank(rank, world, store, out):
     """One rank of the multi-card cases on a (1, world) mesh: each case's
     prefill and decode steps through the mesh builders; rank 0 runs the
-    one-card builders beside them and writes the comparison to ``out``
-    (JSON)."""
+    one-card builders beside them. Then, on an even world, the
+    multi-card VSlices (:func:`multi_card_vslices`). Rank 0 writes the
+    comparisons to ``out`` (JSON)."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -4340,9 +4347,11 @@ def multi_card_rank(rank, world, store, out):
                             "mesh_ms": [got[3], got[4]],
                             "one_ms": [one[3], one[4]]})
             del params, got, full
+        torch.cuda.empty_cache()
+        vres = multi_card_vslices(world, device) if world % 2 == 0 else None
         if rank == 0:
             with open(out, "w") as f:
-                json.dump(res, f)
+                json.dump({"sharded": res, "vslices": vres}, f)
     finally:
         dist.destroy_process_group()
 
@@ -4376,10 +4385,11 @@ def sharded_phase(device, launches, smi):
     count_path("sharded", counts, launches)
     n = torch.cuda.device_count()
     if n < 2:
-        log(f"[sharded] multi-rank cases not run: this machine shows {n} "
-            "card (they need one rank a card); their collectives are held "
-            "to the reference on CPU ranks by tests/test_torch_sharded_"
-            "steps*.py and tests/test_torch_moe_ep.py")
+        log(f"[sharded] multi-rank cases (MULTI_CARD and the multi-card "
+            f"VSlices) not run: this machine shows {n} card (they need one "
+            "rank a card); their collectives are held to the reference on "
+            "CPU ranks by tests/test_torch_sharded_steps*.py, "
+            "tests/test_torch_moe_ep.py and tests/test_torch_vslice_*.py")
     else:
         import torch.multiprocessing as mp
         out = os.path.join(tmp, "multi.json")
@@ -4387,16 +4397,298 @@ def sharded_phase(device, launches, smi):
                            start_method="spawn",
                            args=(n, os.path.join(tmp, "store_multi"), out))
         with open(out) as f:
-            for r in json.load(f):
-                log(f"[sharded] {smi}: (1, {n}) mesh, {r['arch']} "
-                    f"({r['layers']} layers, fp32, {r['sharding'] or 'rules'}"
-                    f"): prefill and {MULTI_DECODE} decode logits within "
-                    f"{r['max_abs_err']:.3g} of the one-card run; prefill "
-                    f"/ decode ms {r['mesh_ms']} vs {r['one_ms']}")
-                if not r["max_abs_err"] <= MULTI_TOL:
-                    raise AssertionError(f"sharded multi-card {r['arch']}: "
-                                         f"{r['max_abs_err']}")
+            multi = json.load(f)
+        for r in multi["vslices"] or []:
+            log(f"[vslices] {smi}: (2, {n // 2}) pod of {n} NCCL ranks, "
+                f"{r['tenant']} on {r['where']}: {VSLICE_DECODE} decode "
+                f"steps within {r['max_abs_err']:.3g} of one card (fp32, "
+                f"{VSLICE_DEPTH} layers at full width); compile hits, "
+                f"misses {r['hits_misses']}")
+            if not r["max_abs_err"] <= MULTI_TOL:
+                raise AssertionError(f"vslices multi-card {r['tenant']} "
+                                     f"{r['where']}: {r['max_abs_err']}")
+        if multi["vslices"] is None:
+            log(f"[vslices] multi-card VSlices not run: {n} cards make no "
+                "(2, n/2) pod")
+        for r in multi["sharded"]:
+            log(f"[sharded] {smi}: (1, {n}) mesh, {r['arch']} "
+                f"({r['layers']} layers, fp32, {r['sharding'] or 'rules'}"
+                f"): prefill and {MULTI_DECODE} decode logits within "
+                f"{r['max_abs_err']:.3g} of the one-card run; prefill "
+                f"/ decode ms {r['mesh_ms']} vs {r['one_ms']}")
+            if not r["max_abs_err"] <= MULTI_TOL:
+                raise AssertionError(f"sharded multi-card {r['arch']}: "
+                                     f"{r['max_abs_err']}")
     log(f"[sharded] took {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# [vslices]: VSlices carved from a pod mesh
+# ---------------------------------------------------------------------------
+
+#: the mesh train driver's crash and resume: reduced qwen1.5-0.5b at the
+#: size of its CPU tests (the full-width checkpoint round trip is the
+#: failover sequence's)
+DRIVER_ARGS = ("--steps", "10", "--batch", "4", "--seq", "32",
+               "--ckpt-every", "5")
+#: the decode tenant's configs (full width)
+VSLICE_MUX_ARGS = ("--full",)
+DRIVER_FAIL_AT = 6
+PATH_KERNELS["vslices"] = ("flash_attention", "decode_attention")
+#: the multi-card VSlices (two cards or more): alice and bob's decode
+#: programs at full width, cut to VSLICE_DEPTH layers, fp32, on the two
+#: rows of a (2, n/2) pod; held to one card within MULTI_TOL
+VSLICE_TENANTS = (("alice", "qwen1.5-0.5b", 1), ("bob", "internlm2-1.8b", 2))
+VSLICE_DEPTH, VSLICE_B, VSLICE_CAP, VSLICE_DECODE = 2, 4, 64, 4
+
+
+def multi_card_vslices(world, device, full=True):
+    """The two-tenant space multiplexing on a (2, world / 2) pod mesh of
+    NCCL ranks (every rank calls this; ``full=False`` and a CPU device
+    rehearse it on gloo ranks at the reduced configs): alice and bob on a
+    row each run their decode programs (``VSLICE_*``, fp32); bob leaves,
+    alice migrates to a fresh row and grows to the whole pod, her
+    weights restored from the checkpoint over the grown slice's mesh,
+    and decodes again. → on rank 0, each run's max |d| against the
+    one-card decode program on the same weights; elsewhere None."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import VMM, ProgramRequest
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core.reconfig import CompileService
+    from repro_torch.core.vmm import world_barrier
+    from repro_torch.launch.mesh import (make_local_mesh, pod_rows,
+                                         shared_tempdir)
+    from repro_torch.models import Model
+    from repro_torch.parallel import abstract_params, build_decode
+    from repro_torch.parallel import build_step_for_cell
+    from repro_torch.parallel import partition as part
+    mt = example("torch_multi_tenant_serving")
+    rank = dist.get_rank()
+    pod_shape, row = pod_rows(world)
+
+    def decode(t, params, cfg, toks):
+        """The tenant's decode program over its slice's mesh from a zero
+        ring, teacher-forced on ``toks``: each step's whole logits."""
+        caches = t_spec = None
+        if t.vslice.member:
+            _, c_specs, t_spec, _ = t.program.bitfile.compiled.specs
+            caches = part.distribute(Model(cfg, device).init_cache(
+                VSLICE_B, VSLICE_CAP), c_specs, t.vslice.mesh)
+        return [None if x is None else x.cpu() for x in mt.decode_on_mesh(
+            params, caches, cfg.vocab, t.vslice.mesh, t_spec, t.device.run,
+            tokens=toks)]
+
+    pod = make_local_mesh(pod_shape, device_type=device.type)
+
+    def cut(cfg):
+        return dataclasses.replace(cfg, n_layers=VSLICE_DEPTH,
+                                   compute_dtype="float32")
+    ckpt = shared_tempdir("vslices_ckpt_")
+    vmm = VMM(pod, policy="hybrid", ckpt_root=ckpt,
+              hbm_per_chip=None if device.type == "cuda" else 1 << 30)
+    vmm.compiler = CompileService(lambda cfg, target, cell, **kw:
+                                  build_step_for_cell(cut(cfg), target, cell,
+                                                      **kw))
+    cell = ShapeCell("vs", VSLICE_CAP, VSLICE_B, "decode")
+    runs, weights = [], {}
+    try:
+        tenants = [vmm.create_vm(name, row) for name, _, _ in VSLICE_TENANTS]
+        for t, (name, arch, seed) in zip(tenants, VSLICE_TENANTS):
+            cfg = cut(get_config(arch, reduced=not full))
+            gen = torch.Generator(device=device).manual_seed(seed)
+            weights[name] = Model(cfg, device).init(gen)
+            toks = [torch.randint(0, cfg.vocab, (VSLICE_B, 1), generator=gen,
+                                  device=device, dtype=torch.int32)
+                    for _ in range(VSLICE_DECODE)]
+            t.device.reprogram(ProgramRequest(arch, "decode", VSLICE_CAP,
+                                              VSLICE_B, reduced=not full))
+            params = part.distribute(
+                weights[name], t.program.bitfile.compiled.specs[0],
+                t.vslice.mesh) if t.vslice.member else None
+            runs.append((name, cfg, toks, f"{t.vslice.spec.shape} ranks "
+                         f"{t.vslice.ranks}", decode(t, params, cfg, toks)))
+            t.state = {"params": params}
+        alice = tenants[0]
+        name, cfg, toks = runs[0][:3]
+        aparams = abstract_params(Model(cfg, device="meta"))
+
+        def placed(vs):
+            return {"params": part.shardings(
+                part.param_specs(cfg, aparams, vs.mesh), vs.mesh)}
+        vmm.destroy_vm("bob")
+        vmm.migrate_tenant(alice, new_shape=row,
+                           state_template={"params": aparams},
+                           shardings_fn=placed)
+        vmm.migrate_tenant(alice, new_shape=pod_shape,
+                           state_template={"params": aparams},
+                           shardings_fn=placed)
+        runs.append((name, cfg, toks, f"grown to {alice.vslice.spec.shape} "
+                     f"ranks {alice.vslice.ranks}",
+                     decode(alice, alice.state["params"], cfg, toks)))
+        hits, misses = vmm.compiler.hits, vmm.compiler.misses
+    finally:
+        vmm.shutdown()
+        world_barrier(pod)
+    got = [r[4] for r in runs]
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, got)
+    if rank != 0:
+        return None
+    out = []
+    for i, (name, cfg, toks, where, _) in enumerate(runs):
+        mine = next(g[i] for g in gathered if g[i][0] is not None)
+        step, _ = build_decode(cfg, device, cell)
+        caches = Model(cfg, device).init_cache(VSLICE_B, VSLICE_CAP)
+        err = 0.0
+        for j, tok in enumerate(toks):
+            logits, caches = step(weights[name], caches, tok, torch.tensor(
+                j, dtype=torch.int32, device=device))
+            err = max(err, float((mine[j] - logits.cpu()).abs().max()))
+        out.append({"tenant": name, "where": where, "max_abs_err": err,
+                    "hits_misses": (hits, misses)})
+    return out
+
+
+def vslices_phase(device, launches, smi, failover, mux_alice):
+    """VSlices carved from a pod ``DeviceMesh`` on the card: a one-rank
+    NCCL world over a ``file://`` store (no network) and a VMM over a
+    (1, 1) pod mesh whose grid entry is rank 0's card. The failover
+    example's sequence (``train_on_pod``) at ``[elastic-failover]``'s cut:
+    6 train steps through the tenant's mesh program, a checkpoint,
+    ``mark_slice_failed``, ``migrate_tenant(..., shardings_fn=)`` back
+    onto the one rectangle, 6 steps, and the same 12 steps natively on
+    the mesh; qwen1.5-0.5b's decode program through a tenant at full
+    width (``serve_on_pod``); the mesh train driver's ``--fail-at 6`` and
+    ``--resume`` at reduced size. Gates: the 12 losses equal, bit for
+    bit, ``[elastic-failover]``'s (``failover``: the device-grid VMM's
+    run in this call), and the uninterrupted mesh run's; the restored
+    leaves equal the checkpointed ones, and their bit sums the device
+    grid's restored leaves' (when the losses were bit for bit); alice's
+    logits equal ``[elastic-mux]``'s wfq run's
+    (else the step named and held to 3e-2); the driver exits 17 and its
+    resumed losses equal the uninterrupted run's; flash and
+    decode_attention launched as many times as the path reckons."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    path = "vslices"
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="vslices_")
+    torch.cuda.empty_cache()
+    dev = ["--device", device.type]
+    dist.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo",
+        init_method="file://" + os.path.join(tmp, "store"), rank=0,
+        world_size=1)
+    common.reset_launches()
+    try:
+        pod = make_local_mesh((1, 1), device_type=device.type)
+        ef = example("torch_elastic_failover")
+        t = time.perf_counter()
+        fargs = ef.parse_args([*dev, *FAILOVER_ARGS])
+        out = ef.train_on_pod(pod, fargs)
+        fo_s = time.perf_counter() - t
+        n = 2 * ef.PHASE_STEPS
+        losses = out["losses"]
+        log(f"[{path}] {smi}: failover on a (1, 1) pod mesh, {ef.ARCH} "
+            f"{FAILOVER_ARGS}: slices {out['slices']}; losses "
+            f"{[round(x, 4) for x in losses]}; checkpoint "
+            f"{out['checkpoint_s']:.2f}s, migrate {out['migrate_s']:.2f}s; "
+            f"compile hits {out['hits']} misses {out['misses']}; "
+            f"{fo_s:.1f}s")
+        for what, want in (("[elastic-failover]'s device-grid VMM",
+                            failover["losses"][:n]),
+                           ("the uninterrupted mesh run",
+                            out["uninterrupted"])):
+            diff = [i for i, (a, b) in enumerate(zip(losses, want)) if a != b]
+            log(f"[{path}] {n} losses equal {what}'s bit for bit: "
+                f"{not diff and len(losses) == n}")
+            if len(losses) != n or any(
+                    abs(losses[i] - want[i]) > TOL["bfloat16"] for i in diff):
+                raise AssertionError(f"{path}: losses {losses} vs {want}")
+            if diff:
+                log(f"[{path}] steps {diff} differ from {what}'s, within "
+                    f"{TOL['bfloat16']}")
+        if not out.get("restored_equal"):
+            raise AssertionError(f"{path}: the restored state differs from "
+                                 "the checkpointed one")
+        grid = failover["restored_sums"]
+        differ = [k for k, v in out["restored_sums"].items() if grid[k] != v]
+        log(f"[{path}] restored leaves equal the checkpointed ones bit for "
+            f"bit; their bit sums equal the device-grid VMM's restored "
+            f"leaves' for {len(grid) - len(differ)} of {len(grid)} leaves"
+            + (f" (not: {differ})" if differ else ""))
+        if differ and losses == failover["losses"][:n]:
+            raise AssertionError(f"{path}: restored leaves {differ} differ "
+                                 "from the device grid's after equal steps")
+        del out
+        torch.cuda.empty_cache()
+        mt = example("torch_multi_tenant_serving")
+        t = time.perf_counter()
+        res = mt.serve_on_pod(pod, mt.parse_args([*dev, *VSLICE_MUX_ARGS]))
+        got = res["tenants"]["alice"]["logits"]
+        diff = [i for i, (a, b) in enumerate(zip(got, mux_alice))
+                if not torch.equal(a, b)]
+        worst = max([float((got[i].float() - mux_alice[i].float()).abs()
+                           .max()) for i in diff], default=0.0)
+        verdict = "equal" if not diff else \
+            f"not equal at steps {diff} (max |d| {worst:.3g}) to"
+        log(f"[{path}] {smi}: qwen1.5-0.5b decode program through a tenant "
+            f"on a (1, 1) pod mesh, full width: {len(got)} steps' logits "
+            f"{verdict} [elastic-mux]'s device-grid tenant's bit for bit; "
+            f"native on "
+            f"the mesh: {res['tenants']['alice']['native_equal']}; "
+            f"{time.perf_counter() - t:.1f}s")
+        if len(got) != len(mux_alice) or worst > TOL["bfloat16"] or \
+                not res["tenants"]["alice"]["native_equal"]:
+            raise AssertionError(f"{path}: alice's logits")
+        del res, got
+        t = time.perf_counter()
+        ck = os.path.join(tmp, "driver")
+        whole = train.main([*dev, *DRIVER_ARGS, "--ckpt-dir", ck + "_whole"])
+        try:
+            train.main([*dev, *DRIVER_ARGS, "--ckpt-dir", ck, "--fail-at",
+                        str(DRIVER_FAIL_AT)])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        resumed = train.main([*dev, *DRIVER_ARGS, "--ckpt-dir", ck,
+                              "--resume"])
+        same = resumed == {k: whole[k] for k in resumed}
+        log(f"[{path}] {smi}: the mesh train driver on a one-rank world: "
+            f"--fail-at {DRIVER_FAIL_AT} exited {code}; --resume ran steps "
+            f"{sorted(resumed)}, {'equal to' if same else 'DIFFERENT from'} "
+            f"the uninterrupted run's losses bit for bit; "
+            f"{time.perf_counter() - t:.1f}s")
+        if code != train.FAIL_EXIT or not same or \
+                sorted(resumed) != list(range(DRIVER_FAIL_AT, 10)):
+            raise AssertionError(f"{path}: driver {code} {resumed} {whole}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = dict(common.LAUNCHES)
+    want = {"flash_attention":
+            2 * n * train_launches(ef.train_config(
+                fargs.full, fargs.depth))["flash_attention"]
+            + 20 * train_launches(get_config("qwen1.5-0.5b", reduced=True))[
+                "flash_attention"],
+            "decode_attention":
+            2 * mt.TOKENS * get_config("qwen1.5-0.5b").n_layers}
+    log(f"[{path}] launches {counts} (reckoned {want})")
+    for k, v in want.items():
+        if counts.get(k, 0) != v:
+            raise AssertionError(f"{path}: {k} launched {counts.get(k, 0)} "
+                                 f"times, want {v}")
+    count_path(path, counts, launches)
+    torch.cuda.empty_cache()
+    log(f"[{path}] took {time.perf_counter() - t0:.1f}s")
 
 
 def main():
@@ -4487,9 +4779,9 @@ def main():
     phase_done("train")
     apps_phase(device, launches)
     phase_done("apps")
-    elastic_mux_phase(device, launches, smi)
+    mux = elastic_mux_phase(device, launches, smi)
     phase_done("elastic-mux")
-    elastic_failover_phase(device, launches, smi)
+    failover = elastic_failover_phase(device, launches, smi)
     phase_done("elastic-failover")
     autoscaler_phase(device, launches, smi)
     phase_done("autoscaler")
@@ -4497,6 +4789,9 @@ def main():
     phase_done("long-context")
     sharded_phase(device, launches, smi)
     phase_done("sharded")
+    vslices_phase(device, launches, smi, failover, mux)
+    del failover, mux
+    phase_done("vslices")
 
     if "--profile" in sys.argv[1:]:
         model = Model(cfg, device)

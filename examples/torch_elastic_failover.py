@@ -13,11 +13,25 @@ the same device, now 8/8 of its memory — and 6 more run. The 18 losses
 are held to the same 18 steps run natively without a failure or a
 resize (fidelity).
 
+Under ``torchrun`` the example runs the reference's sequence on a pod
+``DeviceMesh`` of ranks, one rank a card (:func:`train_on_pod`): 8 ranks
+give the reference's 2×4 grid and (1, 4) slice, 4 ranks a 2×2 grid and
+(1, 2) slice. The tenant's train program runs over its slice's mesh,
+the checkpoint is gathered there and written once, the migration and
+the grow to the whole pod restore it with ``shardings_fn`` (the state
+placed by the partition rules on the new slice's mesh), and the 18
+losses are held to the same steps run natively on meshes of the same
+ranks. The lead rank prints the slices' ranks and the losses. One rank
+gives a (1, 1) pod: the migration goes back to its one rectangle and
+there is no grow.
+
 Runs on the card unless ``--device cpu`` is given; the reduced config
 unless ``--full`` (``--depth N`` cuts the layers):
 
     PYTHONPATH=src python examples/torch_elastic_failover.py \\
         [--device cpu] [--full [--depth 2]] [--batch 4] [--seq 64]
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+        examples/torch_elastic_failover.py --device cpu
 """
 import argparse
 import dataclasses
@@ -31,12 +45,17 @@ import torch
 
 from repro_torch import optim
 from repro_torch.bridge import batch_from_numpy
+from repro_torch.checkpointing.checkpoint import flatten_with_path
+from repro_torch.checkpointing.checkpoint import tree_map as ckpt_tree_map
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeCell
 from repro_torch.core import VMM, ProgramRequest, elastic
 from repro_torch.core.reconfig import CompileService
+from repro_torch.core.vmm import world_barrier
 from repro_torch.data import pipeline_for
+from repro_torch.launch.mesh import make_local_mesh, pod_rows, shared_tempdir
 from repro_torch.models import Model, resolve_device
+from repro_torch.models.model import mesh_device
 from repro_torch.parallel import abstract_params, build_step_for_cell
 
 ARCH = "internlm2-1.8b"
@@ -67,12 +86,217 @@ def run_steps(run, params, opt_state, pipe, steps, device):
     return params, opt_state, losses
 
 
+def bit_sums(tree):
+    """{leaf key: the sum of its bits as int32 words (bytes for other
+    widths)}, on the device: a cheap fingerprint of the leaves' exact
+    bits. DTensor leaves are gathered whole (every rank of their mesh
+    calls this)."""
+    from torch.distributed.tensor import DTensor
+    out = {}
+    for path, leaf in flatten_with_path(tree):
+        t = leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+        t = t.detach().contiguous().reshape(-1)
+        t = t.view(torch.int32) if t.element_size() == 4 else \
+            t.view(torch.uint8)
+        out[".".join(map(str, path))] = int(t.sum(dtype=torch.int64))
+    return out
+
+
 def dir_bytes(path):
     return sum(os.path.getsize(os.path.join(d, f))
                for d, _, files in os.walk(path) for f in files)
 
 
-def main(argv=None):
+def steps_on_mesh(run, specs, mesh, params, opt_state, pipe, steps, device):
+    """:func:`run_steps` over ``mesh``: each batch placed by ``specs``. A
+    rank outside the mesh passes None and gets None losses back (its
+    ops are recorded)."""
+    from repro_torch.parallel import partition as part
+    member = mesh.get_coordinate() is not None
+    losses = []
+    for step in steps:
+        batch = part.distribute(batch_from_numpy(pipe.batch(step), device),
+                                specs[2], mesh) if member else None
+        out = run(params, opt_state, batch)
+        if out is None:
+            losses.append(None)
+            continue
+        params, opt_state, m = out
+        losses.append(float(m["loss"]))
+    return params, opt_state, losses
+
+
+def train_on_pod(pod, args):
+    """The failover sequence on a pod ``DeviceMesh`` (every rank calls
+    this, after ``init_process_group``) → the result dict on every rank
+    (losses None where the rank was outside the trainer's slice)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.parallel import build_train
+    from repro_torch.parallel import partition as part
+    lead = dist.get_rank() == int(pod.mesh.flatten()[0])
+    pod_shape, shape = pod_rows(pod.size())
+    device = mesh_device(pod)
+    cfg = train_config(args.full, args.depth)
+    cell = ShapeCell("ef", args.seq, args.batch, "train")
+    oc = optim.OptConfig(warmup_steps=2, decay_steps=30)
+    pipe = pipeline_for(cfg, cell)
+    aparams = abstract_params(Model(cfg, device="meta"))
+    template = {"params": aparams, "opt": optim.init(oc, aparams)}
+
+    def placed(vs):
+        """The state's placements on ``vs``'s mesh (``shardings_fn``)."""
+        p_specs = part.param_specs(cfg, aparams, vs.mesh)
+        return {"params": part.shardings(p_specs, vs.mesh),
+                "opt": part.shardings(part.opt_specs(cfg, p_specs),
+                                      vs.mesh)}
+
+    def start(specs, mesh):
+        """Seeded parameters and AdamW's state, placed over ``mesh``."""
+        if mesh.get_coordinate() is None:
+            return None, None
+        params, opt_state = init_state(Model(cfg, device), oc, device)
+        return (part.distribute(params, specs[0], mesh),
+                part.distribute(opt_state, specs[1], mesh))
+
+    ckpt = shared_tempdir("ef_ckpt_")
+    vmm = VMM(pod, policy="hybrid", ckpt_root=ckpt,
+              hbm_per_chip=None if device.type == "cuda" else CPU_HBM)
+    if args.depth:
+        vmm.compiler = CompileService(
+            lambda _cfg, target, c, **kw: build_step_for_cell(cfg, target, c,
+                                                              **kw))
+    out = {"losses": [], "pod": pod_shape, "slices": []}
+    say = print if lead else (lambda *a, **k: None)
+    try:
+        tenant = vmm.create_vm("trainer", shape)
+        tenant.device.open()
+        tenant.device.reprogram(ProgramRequest(
+            arch=ARCH, kind="train", seq_len=args.seq,
+            global_batch=args.batch, reduced=not args.full,
+            opt_flags=tuple(dataclasses.asdict(oc).items())))
+        events = []
+        tenant.device.set_status(lambda ev: events.append(ev.kind))
+
+        def phase(first, params, opt_state):
+            vs = tenant.vslice
+            specs = tenant.program.bitfile.compiled.specs \
+                if vs.member else None
+            out["slices"].append((vs.spec.origin, vs.spec.shape, vs.ranks))
+            params, opt_state, losses = steps_on_mesh(
+                tenant.device.run, specs, vs.mesh, params, opt_state, pipe,
+                range(first, first + PHASE_STEPS), device)
+            out["losses"] += losses
+            last = losses[-1]
+            return params, opt_state, "-" if last is None else f"{last:.4f}"
+
+        params, opt_state = start(
+            tenant.program.bitfile.compiled.specs
+            if tenant.vslice.member else None, tenant.vslice.mesh)
+        params, opt_state, last = phase(0, params, opt_state)
+        say(f"[phase1] {PHASE_STEPS} steps on slice "
+            f"{tenant.vslice.spec.origin}, ranks {tenant.vslice.ranks}, "
+            f"loss={last}")
+        tenant.state = {"params": params, "opt": opt_state}
+        # what the restore must give back, bit for bit (members)
+        before = ckpt_tree_map(lambda x: x.to_local().clone(), tenant.state) \
+            if tenant.vslice.member else None
+        del params, opt_state
+        t0 = time.perf_counter()
+        vmm.checkpoint_tenant(tenant)
+        out["checkpoint_s"] = time.perf_counter() - t0
+        vmm.mark_slice_failed(tenant.vslice.slice_id)
+        out["events"] = list(events)
+        t0 = time.perf_counter()
+        vmm.migrate_tenant(tenant, new_shape=shape, state_template=template,
+                           shardings_fn=placed)
+        out["migrate_s"] = time.perf_counter() - t0
+        if before is not None:
+            out["restored_equal"] = all(
+                torch.equal(a, b.to_local()) for (_, a), (_, b) in zip(
+                    flatten_with_path(before),
+                    flatten_with_path(tenant.state)))
+            out["restored_sums"] = bit_sums(tenant.state)
+        del before
+        say(f"[failure] checkpoint in {out['checkpoint_s']:.2f}s; slice "
+            f"marked failed, events={events}; migrated to "
+            f"{tenant.vslice.spec.origin}, ranks {tenant.vslice.ranks}, in "
+            f"{out['migrate_s']:.2f}s")
+        params, opt_state, last = phase(PHASE_STEPS,
+                                        tenant.state.pop("params"),
+                                        tenant.state.pop("opt"))
+        say(f"[phase2] resumed, loss={last}")
+        grow = pod_shape != shape
+        if grow:
+            tenant.state = {"params": params, "opt": opt_state}
+            del params, opt_state
+            t0 = time.perf_counter()
+            elastic.resize(vmm, tenant, pod_shape, state_template=template,
+                           shardings_fn=placed)
+            out["resize_s"] = time.perf_counter() - t0
+            say(f"[elastic] grown to {tenant.vslice.spec.shape}: ranks "
+                f"{tenant.vslice.ranks} in {out['resize_s']:.2f}s")
+            params, opt_state, last = phase(2 * PHASE_STEPS,
+                                            tenant.state.pop("params"),
+                                            tenant.state.pop("opt"))
+            say(f"[phase3] on the grown slice, loss={last}")
+        else:
+            say(f"[elastic] a {pod_shape} pod has no larger slice: no grow")
+        del params, opt_state
+        st = vmm.stats()
+        out["hits"], out["misses"] = st["compile_hits"], st["compile_misses"]
+        say(f"compile cache: hits={out['hits']} misses={out['misses']}")
+    finally:
+        vmm.shutdown()
+        world_barrier(pod)
+        if lead:
+            shutil.rmtree(ckpt, ignore_errors=True)
+
+    # fidelity: the same steps natively on meshes of the same ranks, no
+    # failure, no checkpoint
+    first_ranks = out["slices"][0][2]
+    mesh = DeviceMesh(pod.device_type, torch.tensor(
+        [list(first_ranks)]), mesh_dim_names=("data", "model"))
+    want = []
+    params = opt_state = None
+    if mesh.get_coordinate() is not None:
+        run, _ = build_train(cfg, mesh, cell, oc)
+        params, opt_state = start(run.specs, mesh)
+        params, opt_state, want = steps_on_mesh(
+            run, run.specs, mesh, params, opt_state, pipe,
+            range(2 * PHASE_STEPS), device)
+    if grow:
+        # gathered on the first slice's ranks (collective there), sent
+        # from its first rank to every rank
+        whole = (full_tree(params), full_tree(opt_state)) \
+            if mesh.get_coordinate() is not None else None
+        box = [whole if dist.get_rank() == first_ranks[0] else None]
+        del whole
+        dist.broadcast_object_list(box, src=first_ranks[0])
+        run, _ = build_train(cfg, pod, cell, oc)
+        params = part.distribute(box[0][0], run.specs[0], pod, device)
+        opt_state = part.distribute(box[0][1], run.specs[1], pod, device)
+        del box
+        *_, more = steps_on_mesh(run, run.specs, pod, params, opt_state,
+                                 pipe, range(2 * PHASE_STEPS,
+                                             3 * PHASE_STEPS), device)
+        want = (want or [None] * 2 * PHASE_STEPS) + more
+    del params, opt_state
+    out["uninterrupted"] = want
+    same = out["losses"] == want
+    say(f"[fidelity] {len(want)} losses "
+        f"{'equal to' if same else 'DIFFERENT from'} an uninterrupted "
+        "run on meshes of the same ranks bit for bit")
+    return out
+
+
+def full_tree(tree):
+    """DTensor leaves → whole CPU tensors (a tree every rank can take)."""
+    return ckpt_tree_map(lambda x: x.full_tensor().cpu(), tree)
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
@@ -82,8 +306,21 @@ def main(argv=None):
                     help="cut the model to this many layers")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     device = resolve_device(args.device)
+    if "WORLD_SIZE" in os.environ:            # under torchrun
+        import torch.distributed as dist
+        dist.init_process_group("gloo" if device.type == "cpu" else "nccl")
+        try:
+            pod = make_local_mesh(pod_rows(dist.get_world_size())[0],
+                                  device_type=device.type)
+            return train_on_pod(pod, args)
+        finally:
+            dist.destroy_process_group()
 
     cfg = train_config(args.full, args.depth)
     cell = ShapeCell("ef", args.seq, args.batch, "train")
@@ -144,6 +381,7 @@ def main(argv=None):
         vmm.migrate_tenant(tenant, new_shape=(1, 4), state_template=template)
         out["migrate_s"] = time.perf_counter() - t0
         out["restore_s"] = vmm.stats()["ops"]["restore"]["mean_ms"] / 1e3
+        out["restored_sums"] = bit_sums(tenant.state)
         out["pool_before"] = tenant.pool.n_segments * tenant.pool.segment_bytes
         out["share_before"] = out["pool_before"] / whole
         print(f"[migrated] {old} -> {tenant.vslice.spec.origin} "

@@ -15,13 +15,25 @@ on the same weights (fidelity). Includes the paper's cross-slice
 reprogram attack (denied and audited), a warm-reconfiguration hit, the
 per-tenant scheduler stats and the criteria report.
 
+Under ``torchrun`` the example runs the reference's sequence on a pod
+``DeviceMesh`` of ranks, one rank a card (:func:`serve_on_pod`): 8 ranks
+give the reference's 2×4 grid of (1, 4) slices, 4 ranks a 2×2 grid of
+(1, 2) slices; every rank runs the same VMM, each tenant's decode
+program runs over its slice's mesh (weights and caches placed by the
+program's specs), and its logits are held to the same program built
+natively on that mesh. The lead rank prints the slices' ranks and each
+tenant's logits. One rank gives a (1, 1) pod: room for alice only.
+
 Runs on the card unless ``--device cpu`` is given; reduced configs
 unless ``--full``:
 
     PYTHONPATH=src python examples/torch_multi_tenant_serving.py \\
         [--device cpu] [--policy slo] [--full] [--metrics]
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+        examples/torch_multi_tenant_serving.py --device cpu
 """
 import argparse
+import os
 import shutil
 import tempfile
 
@@ -32,7 +44,10 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeCell
 from repro_torch.core import (PRIORITY_HIGH, VMM, LegalityError,
                               ProgramRequest, report)
+from repro_torch.core.vmm import world_barrier
+from repro_torch.launch.mesh import make_local_mesh, pod_rows, shared_tempdir
 from repro_torch.models import Model, resolve_device
+from repro_torch.models.model import mesh_device
 from repro_torch.obs import ObsHub
 from repro_torch.parallel import build_decode
 
@@ -74,7 +89,160 @@ def decode(params, caches, vocab, device, run, run_async=None):
     return out
 
 
-def main(argv=None):
+def decode_on_mesh(params, caches, vocab, mesh, t_spec, run,
+                   run_async=None, tokens=None):
+    """:func:`decode` over a slice's mesh: tokens placed by ``t_spec``,
+    each step's logits gathered whole. With ``tokens`` (a list of
+    ``(batch, 1)`` int32 tensors) the steps are teacher-forced on them
+    instead. A rank outside ``mesh`` passes None for every input and gets
+    Nones back (its ops are recorded)."""
+    from repro_torch.parallel import partition as part
+    member = mesh.get_coordinate() is not None
+    device = mesh_device(mesh)
+    token = torch.ones((BATCH, 1), dtype=torch.int32, device=device)
+    out = []
+    for p in range(TOKENS if tokens is None else len(tokens)):
+        if tokens is not None:
+            token = tokens[p]
+        tok = part.distribute({"t": token}, {"t": t_spec}, mesh)["t"] \
+            if member else None
+        pos = torch.tensor(p, dtype=torch.int32, device=device)
+        if p == 0 or run_async is None:
+            res = run(params, caches, tok, pos)
+        else:
+            res = run_async(params, caches, tok, pos).result(timeout=600)
+        if res is None:
+            out.append(None)
+            continue
+        logits, caches = res
+        logits = logits.full_tensor()
+        out.append(logits)
+        token = logits[:, :vocab].argmax(-1).to(torch.int32)[:, None]
+    return out
+
+
+def serve_on_pod(pod, args):
+    """The two tenants on a pod ``DeviceMesh`` (every rank calls this,
+    after ``init_process_group``): alice and bob on one row each, their
+    decode programs over their slices' meshes, the cross-slice attack,
+    a warm hit, the scheduler stats and the criteria report. → the
+    result dict (every rank; a tenant's logits on its ranks only)."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import partition as part
+    rank = dist.get_rank()
+    lead = rank == int(pod.mesh.flatten()[0])
+    _, shape = pod_rows(pod.size())
+    device = mesh_device(pod)
+    ckpt = shared_tempdir("mt_ckpt_")
+    vmm = VMM(pod, policy=args.policy, ckpt_root=ckpt,
+              hbm_per_chip=None if device.type == "cuda" else CPU_HBM,
+              obs=ObsHub(enabled=args.metrics))
+    result = {"policy": args.policy, "pod": tuple(pod.mesh.shape),
+              "tenants": {}}
+    lines = []
+    try:
+        room = vmm.floorplanner.rows * vmm.floorplanner.cols // (
+            shape[0] * shape[1])
+        tenants = []
+        for (name, _, _), weight, prio in zip(TENANTS[:room], (3.0, 1.0),
+                                              (PRIORITY_HIGH, None)):
+            kw = ({"sched_priority": prio, "sched_slo_wait_s": 0.05}
+                  if prio is not None else {}) if args.policy == "slo" \
+                else {"sched_weight": weight}
+            tenants.append(vmm.create_vm(name, shape, **kw))
+        if lead:
+            print("floorplan:", vmm.floorplanner.snapshot(), "ranks:",
+                  {t.name: t.vslice.ranks for t in tenants})
+        for tenant, (_, arch, seed) in zip(tenants, TENANTS):
+            cfg = get_config(arch, reduced=not args.full)
+            tenant.device.open()
+            cell = ShapeCell("native", SEQ_LEN, BATCH, "decode")
+            prog = tenant.device.reprogram(ProgramRequest(
+                arch=arch, kind="decode", seq_len=SEQ_LEN,
+                global_batch=BATCH, reduced=not args.full))
+            mesh = tenant.vslice.mesh
+            info = {"arch": arch, "ranks": tenant.vslice.ranks,
+                    "pool_bytes": tenant.pool.n_segments
+                    * tenant.pool.segment_bytes, "ops": TOKENS}
+            params = caches = t_spec = None
+            if tenant.vslice.member:
+                p_specs, c_specs, t_spec, _ = prog.bitfile.compiled.specs
+                model = Model(cfg, device)
+                params = part.distribute(program_params(
+                    prog.bitfile.abstract_args[0], model.init_compute_params(
+                        torch.Generator(device=device).manual_seed(seed))),
+                    p_specs, mesh)
+                fresh = lambda: part.distribute(  # noqa: E731
+                    model.init_cache(BATCH, SEQ_LEN), c_specs, mesh)
+                caches = fresh()
+            got = decode_on_mesh(params, caches, cfg.vocab, mesh, t_spec,
+                                 tenant.device.run, tenant.device.run_async)
+            if tenant.vslice.member:
+                # fidelity: the same program built natively on the mesh
+                step, _ = build_decode(cfg, mesh, cell)
+                want = decode_on_mesh(params, fresh(), cfg.vocab, mesh,
+                                      t_spec, step)
+                info["native_equal"] = all(torch.equal(a, b)
+                                           for a, b in zip(got, want))
+                info["finite"] = bool(torch.isfinite(got[-1].float()).all())
+                info["logits"] = [x.cpu() for x in got]
+                if rank == tenant.vslice.ranks[0]:
+                    lines.append(
+                        f"[{tenant.name}] served {TOKENS} tokens of {arch} "
+                        f"on slice {tenant.vslice.spec.shape} at "
+                        f"{tenant.vslice.spec.origin}, ranks "
+                        f"{tenant.vslice.ranks} (pool {info['pool_bytes']} "
+                        f"bytes); logits {tuple(got[-1].shape)}, "
+                        + ("equal to" if info["native_equal"]
+                           else "DIFFERENT from")
+                        + " the program built natively on the slice's mesh "
+                        "bit for bit")
+                del params, caches, got, want
+            result["tenants"][tenant.name] = info
+
+        if len(tenants) == 2:
+            alice, bob = tenants
+            try:
+                bob.device.reprogram(alice.program.bitfile)
+                result["attack_denied"] = False
+            except LegalityError as e:
+                result["attack_denied"] = True
+                result["attack"] = f"cross-slice reprogram denied: {e}"
+        else:
+            result["attack"] = (f"a {result['pod']} pod holds one tenant: "
+                                "no cross-slice attack to try")
+        result["violations"] = vmm.auditor.summary()
+        tenants[0].device.reprogram(ProgramRequest(
+            arch=TENANTS[0][1], kind="decode", seq_len=SEQ_LEN,
+            global_batch=BATCH, reduced=not args.full))
+        result["hits"], result["misses"] = (vmm.compiler.hits,
+                                            vmm.compiler.misses)
+        result["sched"] = vmm.stats()["scheduler"]["tenants"]
+        result["report"] = report(vmm).to_markdown()
+    finally:
+        vmm.shutdown()
+        world_barrier(pod)
+        if lead:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, lines)
+    if lead:
+        for rank_lines in gathered:
+            for line in rank_lines:
+                print(line)
+        print(f"[isolation] {result['attack']}")
+        print(f"compile cache: hits={result['hits']} "
+              f"misses={result['misses']}")
+        for name, st in result["sched"].items():
+            print(f"[sched:{args.policy}] {name}: completed="
+                  f"{st['completed']} failed={st['failed']} "
+                  f"avg_wait={st['avg_wait_ms']:.2f}ms")
+        print(result["report"])
+    return result
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
@@ -84,8 +252,21 @@ def main(argv=None):
     ap.add_argument("--metrics", action="store_true",
                     help="enable the telemetry plane and print the "
                          "Prometheus exposition at exit")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     device = resolve_device(args.device)
+    if "WORLD_SIZE" in os.environ:            # under torchrun
+        import torch.distributed as dist
+        dist.init_process_group("gloo" if device.type == "cpu" else "nccl")
+        try:
+            pod = make_local_mesh(pod_rows(dist.get_world_size())[0],
+                                  device_type=device.type)
+            return serve_on_pod(pod, args)
+        finally:
+            dist.destroy_process_group()
 
     grid = np.empty((2, 4), dtype=object)
     grid[:] = device

@@ -19,6 +19,15 @@ migration): leaves are read on the host and moved to ``device``.
 :class:`CheckpointManager` adds the save interval, ``keep_n`` retention
 and async saves (the host copy on the caller's thread, the file I/O on
 one worker thread), as the reference's does.
+
+Over a mesh (the reference's sharded save and elastic restore): a tree
+with DTensor leaves is saved as whole leaves, each gathered inside its
+mesh (every rank of the mesh calls :func:`save`; collectives in leaf
+order), and written once, by the mesh's first rank. ``restore(...,
+shardings_tree=)`` takes, at each leaf, the port's ``NamedSharding``,
+``(mesh, spec)``: every rank of that mesh reads the host array and
+keeps its own block (no collective), a rank outside it gets None. The
+checkpoint may be read by ranks other than those that wrote it.
 """
 from __future__ import annotations
 
@@ -83,6 +92,35 @@ def _leaf_key(path) -> str:
     return ".".join(str(p) for p in path) or "root"
 
 
+def _whole(leaf):
+    """A DTensor leaf → its whole tensor (collective inside its mesh);
+    any other leaf as it is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        return leaf.full_tensor()
+    return leaf
+
+
+def all_dtensors(tree) -> bool:
+    """Whether every leaf of ``tree`` is a DTensor."""
+    from torch.distributed.tensor import DTensor
+    return all(isinstance(leaf, DTensor)
+               for _, leaf in flatten_with_path(tree))
+
+
+def writes(tree) -> bool:
+    """Whether this process writes ``tree``'s checkpoint: always for a
+    tree of plain tensors; for one with DTensor leaves, on the first rank
+    of the first such leaf's mesh only."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    for _, leaf in flatten_with_path(tree):
+        if isinstance(leaf, DTensor):
+            return int(leaf.device_mesh.mesh.flatten()[0]) == \
+                dist.get_rank()
+    return True
+
+
 def _to_numpy(leaf):
     """→ (numpy array to store, true dtype name)."""
     if isinstance(leaf, torch.Tensor):
@@ -95,8 +133,14 @@ def _to_numpy(leaf):
 
 
 def save(root: str, step: int, tree, meta: Optional[dict] = None) -> str:
-    """Synchronous save. Returns the checkpoint directory."""
+    """Synchronous save. Returns the checkpoint directory. DTensor leaves
+    are gathered whole (every rank of their mesh calls this) and written
+    by the mesh's first rank only (:func:`writes`)."""
     d = os.path.join(root, f"step_{step:08d}")
+    writer = writes(tree)
+    tree = tree_map(_whole, tree)
+    if not writer:
+        return d
     tmp = d + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -131,32 +175,61 @@ def _load_leaf(ckpt_dir, info) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir: str, template=None, device=None):
+def restore(ckpt_dir: str, template=None, shardings_tree=None,
+            device=None):
     """Restore a checkpoint directory → (step, tree, meta).
 
-    ``template`` (a tree of like-structured tensors) defines the output
-    structure, dtypes and shapes; without it a flat {key: tensor} dict is
-    returned. Leaves are placed on ``device`` (default: the CPU)."""
+    ``template`` (a tree of like-structured tensors, meta and DTensors
+    included) defines the output structure, dtypes and shapes; without it
+    a flat {key: tensor} dict is returned. ``shardings_tree`` (the
+    template's structure with a ``(mesh, spec)`` at each leaf) places
+    each leaf over its mesh as a DTensor: each rank of the mesh keeps its
+    own block, a rank outside it gets None (reading nothing). Without it
+    leaves are placed on ``device`` (default: the CPU)."""
+    from repro_torch.models.model import mesh_device
+    from repro_torch.parallel import partition as part
     with open(os.path.join(ckpt_dir, "manifest.json")) as f:
         manifest = json.load(f)
     dev = torch.device(device if device is not None else "cpu")
-    arrays = {key: _load_leaf(ckpt_dir, info)
-              for key, info in manifest["leaves"].items()}
+    infos = manifest["leaves"]
     if template is None:
-        return (manifest["step"], {k: v.to(dev) for k, v in arrays.items()},
-                manifest["meta"])
+        return (manifest["step"],
+                {k: _load_leaf(ckpt_dir, v).to(dev) for k, v in
+                 infos.items()}, manifest["meta"])
     leaves = {}
     for path, tmpl in flatten_with_path(template):
         key = _leaf_key(path)
-        if key not in arrays:
+        if key not in infos:
             raise KeyError(f"checkpoint missing leaf {key}")
-        t = torch.as_tensor(tmpl)
-        arr = arrays[key]
-        if tuple(arr.shape) != tuple(t.shape):
+        shape = tuple(tmpl.shape) if isinstance(tmpl, torch.Tensor) \
+            else tuple(np.shape(tmpl))
+        if tuple(infos[key]["shape"]) != shape:
             raise ValueError(f"shape mismatch for {key}: "
-                             f"{tuple(arr.shape)} vs {tuple(t.shape)}")
-        leaves[path] = arr.to(dtype=t.dtype, device=dev)
+                             f"{tuple(infos[key]['shape'])} vs {shape}")
+        dtype = tmpl.dtype if isinstance(tmpl, torch.Tensor) \
+            else torch.as_tensor(tmpl).dtype
+        sharding = part.at_path(shardings_tree, path) \
+            if shardings_tree is not None else None
+        if sharding is None:
+            leaves[path] = _load_leaf(ckpt_dir, infos[key]).to(
+                dtype=dtype, device=dev)
+            continue
+        mesh, spec = sharding
+        if mesh.get_coordinate() is None:
+            leaves[path] = None
+            continue
+        whole = _load_leaf(ckpt_dir, infos[key]).to(dtype=dtype)
+        local = part.local_block(whole, spec, mesh).to(
+            device=mesh_device(mesh), copy=True).contiguous()
+        leaves[path] = part.from_local(local, spec, mesh, shape)
     return manifest["step"], unflatten(template, leaves), manifest["meta"]
+
+
+def read_manifest(ckpt_dir: str):
+    """→ (step, meta) of a checkpoint directory, reading no leaf."""
+    with open(os.path.join(ckpt_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    return manifest["step"], manifest["meta"]
 
 
 def latest(root: str) -> Optional[str]:
@@ -173,7 +246,9 @@ def latest(root: str) -> Optional[str]:
 
 def _host_copy(leaf):
     """A host copy of a tensor leaf (a copy also of a CPU tensor: the
-    caller may overwrite its tensors while the save runs)."""
+    caller may overwrite its tensors while the save runs); a DTensor leaf
+    gathered whole first."""
+    leaf = _whole(leaf)
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return leaf
@@ -207,8 +282,13 @@ class CheckpointManager:  # concurrency: caller thread + one I/O worker
 
     def save(self, step: int, tree, meta=None, block=False):
         """→ the save's Future (async) or its directory (``block`` or
-        ``async_save=False``)."""
+        ``async_save=False``). A tree with DTensor leaves is gathered on
+        every rank of their mesh (each calls this) and written by its
+        first rank; the others get None."""
+        writer = writes(tree)
         host_tree = tree_map(_host_copy, tree)
+        if not writer:
+            return None
 
         def _do():
             path = save(self.root, step, host_tree, meta)
@@ -229,13 +309,15 @@ class CheckpointManager:  # concurrency: caller thread + one I/O worker
         if pending is not None:
             pending.result()
 
-    def restore_latest(self, template=None, device=None):
+    def restore_latest(self, template=None, shardings_tree=None,
+                       device=None):
         """→ (step, tree, meta) of the newest committed checkpoint, or
-        None when there is none."""
+        None when there is none (``shardings_tree``: see
+        :func:`restore`)."""
         d = latest(self.root)
         if d is None:
             return None
-        return restore(d, template, device)
+        return restore(d, template, shardings_tree, device)
 
     def close(self):
         self.wait()

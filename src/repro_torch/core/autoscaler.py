@@ -28,6 +28,18 @@ Design points:
   action is recorded as ``grow_blocked`` (and the cooldown still
   applies, so a full floorplan is not hammered).
 
+* **Lockstep on a multi-rank pod.** On a VMM over a pod mesh of
+  several ranks every rank runs this control loop, and a decision taken
+  from a local reading (wall time, IRQ counts) must be agreed before it
+  changes the floorplan, or the ranks' meshes and collectives diverge.
+  :meth:`poll` is the point of agreement: the pod's first rank decides
+  from its own events and clock and broadcasts the decisions over the
+  world (``VMM.agree``), and every rank applies them; a resize that
+  raises on one rank raises there rather than being recorded, since the
+  other ranks may be inside its collectives. :meth:`start` (a background
+  thread, whose decisions no rank could agree on) and ``swap_cb`` (a
+  local answer) are refused there.
+
 All actions are visible in ``VMM.stats()["autoscaler"]``. This is the
 port of ``repro.core.autoscaler``.
 """
@@ -86,6 +98,9 @@ class Autoscaler:
         # asks the KV swap tier to shed device pressure to host memory;
         # True turns ``grow_blocked`` into ``swap_relief``.
         self.swap_cb = swap_cb
+        if swap_cb is not None and self._lockstep():
+            raise ValueError("swap_cb answers from one rank's state: it "
+                             "cannot be agreed on a multi-rank pod")
         self.actions: deque = deque(maxlen=256)  # guarded-by: _lock
         self._watched: Dict[str, _Watch] = {}    # guarded-by: _lock
         # tenants whose cq has our handler
@@ -135,14 +150,35 @@ class Autoscaler:
             w.last_event = now
 
     # -- control loop ---------------------------------------------------
+    def _lockstep(self) -> bool:
+        pod = getattr(self.vmm, "pod_mesh", None)
+        return pod is not None and pod.size() > 1
+
     def poll(self, now: Optional[float] = None) -> List[dict]:
         """Evaluate every watched tenant once; perform at most one
-        scaling action per tenant. Returns the actions taken."""
+        scaling action per tenant. Returns the actions taken. On a
+        multi-rank pod every rank calls this, in the same order: the
+        pod's first rank decides (its clock, its events) and every rank
+        applies its decisions."""
+        if self._lockstep():
+            import torch.distributed as dist
+            src = int(self.vmm.pod_mesh.mesh.flatten()[0])
+            mine = None
+            if dist.get_rank() == src:
+                now = self.time_fn() if now is None else now
+                mine = (now, self._decide(now))
+            now, plan = self.vmm.agree(mine, src)
+            return self._apply(plan, now)
         now = self.time_fn() if now is None else now
-        taken = []
+        return self._apply(self._decide(now), now)
+
+    def _decide(self, now: float) -> List[tuple]:
+        """→ [(tenant, "grow" | "shrink", pressure events)]: the resize
+        each watched tenant is due at ``now``."""
         with self._lock:
-            watches = list(self._watched.values())
-        for w in watches:
+            watches = list(self._watched.items())
+        plan = []
+        for name, w in watches:
             with self._lock:
                 while w.events and now - w.events[0][0] > self.window_s:
                     w.events.popleft()
@@ -150,14 +186,29 @@ class Autoscaler:
                 last_event, last_action = w.last_event, w.last_action
             if now - last_action < self.cooldown_s:
                 continue
-            act = None
+            if n_events >= self.sustain:
+                plan.append((name, "grow", n_events))
+            elif (self.scale_down and w.history
+                    and now - last_event >= self.calm_s):
+                plan.append((name, "shrink", 0))
+        return plan
+
+    def _apply(self, plan: List[tuple], now: float) -> List[dict]:
+        taken = []
+        for name, kind, n_events in plan:
+            with self._lock:
+                w = self._watched.get(name)
+            if w is None:
+                continue
             try:
-                if n_events >= self.sustain:
-                    act = self._grow(w, now, n_events)
-                elif (self.scale_down and w.history
-                        and now - last_event >= self.calm_s):
-                    act = self._shrink(w, now)
+                act = self._grow(w, now, n_events) if kind == "grow" \
+                    else self._shrink(w, now)
             except Exception as exc:       # noqa: BLE001
+                if self._lockstep():
+                    # the other ranks may be inside the resize's
+                    # collectives: recording it here would leave them
+                    # there while this rank goes on
+                    raise
                 # a resize can fail beyond AdmissionError (re-bind,
                 # checkpoint I/O, ...) — record it and keep the control
                 # loop alive rather than silently killing the thread
@@ -251,6 +302,12 @@ class Autoscaler:
 
     # -- background driver ----------------------------------------------
     def start(self, interval_s: float = 0.25):
+        if self._lockstep():
+            raise RuntimeError(
+                "Autoscaler.start: a background thread's decisions cannot "
+                "be agreed across the ranks of a multi-rank pod (an "
+                "asynchronous decision has no synchronous point); call "
+                "poll() on every rank instead")
         if self._thread is not None:
             return
         self._stop.clear()

@@ -10,7 +10,12 @@ built on the live-migration primitive (the port of
 
 On one card a grow or shrink changes how many shares of the card's
 memory the tenant's pool holds (``VMM._make_pool``); the program is
-re-bound to the new slice and the state restored onto the card.
+re-bound to the new slice and the state restored onto the card. On a pod
+mesh a resize moves the tenant to another rectangle of ranks: its
+program is built for the new slice's mesh and ``shardings_fn(vs)``
+places the restored state over it; ``defragment`` re-binds each moved
+slice's program to its new mesh the same way. Every rank makes these
+calls in the same order (the meshes they build are collective).
 """
 from __future__ import annotations
 

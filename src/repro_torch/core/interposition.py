@@ -10,7 +10,8 @@ checkpoint and restore." Here:
 * ``TenantCheckpointer`` — snapshot/restore of a tenant's device-resident
   state (params / optimizer / step / loaded-program identity) through the
   checkpointing substrate; restore places the state on the *target*
-  slice's device, which is what makes live migration possible.
+  slice's device or, with a shardings tree, over its mesh, which is what
+  makes live migration possible.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import time
 from dataclasses import dataclass
 from typing import List, Optional
 
+from repro_torch.checkpointing import checkpoint as ckpt_mod
 from repro_torch.checkpointing import latest as ckpt_latest
 from repro_torch.checkpointing import restore as ckpt_restore
 from repro_torch.checkpointing import save as ckpt_save
@@ -104,7 +106,8 @@ class OpLog:
 
 
 class TenantCheckpointer:
-    """Snapshot / restore of tenant device state (onto any device)."""
+    """Snapshot / restore of tenant device state (onto any device, or over
+    any mesh)."""
 
     def __init__(self, root: str):
         self.root = root
@@ -117,9 +120,22 @@ class TenantCheckpointer:
                  meta: dict) -> str:
         return ckpt_save(self.path(tenant_name), step, state_tree, meta)
 
-    def restore(self, tenant_name: str, template, device=None):
+    def step_path(self, tenant_name: str, step: int) -> str:
+        """The directory :meth:`snapshot` writes for ``step``."""
+        return os.path.join(self.path(tenant_name), f"step_{step:08d}")
+
+    def _latest(self, tenant_name: str) -> str:
         d = ckpt_latest(self.path(tenant_name))
         if d is None:
             raise FileNotFoundError(
                 f"no checkpoint for tenant {tenant_name}")
-        return ckpt_restore(d, template, device)
+        return d
+
+    def restore(self, tenant_name: str, template, shardings_tree=None,
+                device=None):
+        return ckpt_restore(self._latest(tenant_name), template,
+                            shardings_tree, device)
+
+    def manifest(self, tenant_name: str):
+        """→ (step, meta) of the newest checkpoint, reading no leaf."""
+        return ckpt_mod.read_manifest(self._latest(tenant_name))

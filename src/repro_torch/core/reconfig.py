@@ -12,9 +12,10 @@ a vSlice. The mapping:
   "user in VM0 reprograms PRR1" attack), while allowing *re-binding*
   across identical-topology slices (warm migration).
 * PCIe reconfig cost → "compile" seconds: building the step through
-  ``repro_torch.parallel.steps`` and building and loading every CUDA
-  kernel library the step launches; the ``CompileService`` cache turns
-  repeat loads into warm reconfigurations. There is no ahead-of-time
+  ``repro_torch.parallel.steps`` (against the slice's mesh when it has
+  one) and building and loading every CUDA kernel library the step
+  launches; the ``CompileService`` cache turns repeat loads into warm
+  reconfigurations. There is no ahead-of-time
   graph compilation (no ``torch.compile``, no CUDA graphs).
 """
 from __future__ import annotations
@@ -135,17 +136,40 @@ class LoadedProgram:
         return self.bitfile.compiled(*args)
 
 
+class OutsideSlice:
+    """The program of a slice this rank is not in: it records the slice's
+    mesh, so legality checks take the same decision on every rank, and
+    refuses to run (such a rank runs none of the slice's steps)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __call__(self, *args, **kw):
+        raise LegalityError("this rank is outside the slice the program "
+                            "is bound to")
+
+
 class CompileService:
-    """Builds step programs for a slice's device, with a program cache.
+    """Builds step programs for a slice, with a program cache.
+
+    A slice carved from a pod mesh gets the step built against its
+    ``mesh`` (the reference lowers against ``vslice.mesh``); a slice of a
+    device grid gets it built for its one ``device``.
 
     Cache key = (program_key, topology_key): a program built once for a
     1×1 slice is a warm hit for *any* 1×1 slice (the paper's observation
     that PR bitfiles are only shell/region-compatible, made less painful
-    by topology-class reuse). A step runs on whatever device its inputs
-    live on, so re-binding needs no rebuild."""
+    by topology-class reuse). A device step runs on whatever device its
+    inputs live on, so re-binding needs no rebuild. A mesh step closes
+    over its mesh's process groups, so a hit on another rectangle
+    re-binds by building the step for the new slice's mesh (its kernels
+    are loaded already: nothing is compiled). A rank outside the slice
+    counts the hit or miss and records a Bitfile without building the
+    step (``compiled`` an :class:`OutsideSlice`, ``abstract_args``
+    None), so every rank's counters and legality checks agree."""
 
     def __init__(self, step_builder: Optional[Callable] = None):
-        # step_builder(cfg, device, cell) → (step, abstract_args)
+        # step_builder(cfg, device_or_mesh, cell) → (step, abstract_args)
         if step_builder is None:
             from repro_torch.parallel.steps import build_step_for_cell
             step_builder = build_step_for_cell
@@ -158,31 +182,19 @@ class CompileService:
     def compile(self, req: ProgramRequest, vslice: VSlice) -> Bitfile:
         key = (req.program_key, vslice.topology_key)
         with self._lock:
-            if key in self.cache:
+            cached = self.cache.get(key)
+            if cached is not None:
                 self.hits += 1
-                cached = self.cache[key]
-                # re-bind to this concrete slice (warm reconfig)
-                return Bitfile(cached.program_key, cached.topology_key,
-                               vslice.fingerprint, cached.compiled,
-                               cached.abstract_args,
-                               compile_seconds=0.0)
-        from repro_torch.configs import get_config
-        from repro_torch.configs.base import ShapeCell
-        from repro_torch.parallel.steps import step_kernels
-        cfg = get_config(req.arch, reduced=req.reduced)
-        cell = ShapeCell("custom", req.seq_len, req.global_batch,
-                         req.kind)
-        device = vslice.device
-        kw = {}
-        if req.kind == "train" and req.opt_flags:
-            from repro_torch.optim import OptConfig
-            kw["opt_cfg"] = OptConfig(**dict(req.opt_flags))
+        if cached is not None:
+            compiled, abstract_args = cached.compiled, cached.abstract_args
+            if vslice.mesh is not None and compiled.mesh is not vslice.mesh:
+                compiled, abstract_args = self._program(req, vslice)
+            # re-bind to this concrete slice (warm reconfig)
+            return Bitfile(cached.program_key, cached.topology_key,
+                           vslice.fingerprint, compiled, abstract_args,
+                           compile_seconds=0.0)
         t0 = time.perf_counter()
-        step, abstract_args = self._build(cfg, device, cell, **kw)
-        if getattr(device, "type", None) == "cuda":
-            from repro_torch.kernels import common
-            for name in step_kernels(req.kind, cfg):
-                common.library(name)          # nvcc at first use, then load
+        step, abstract_args = self._program(req, vslice, load=True)
         dt = max(time.perf_counter() - t0, 1e-9)
         bf = Bitfile(req.program_key, vslice.topology_key,
                      vslice.fingerprint, step, abstract_args,
@@ -191,6 +203,35 @@ class CompileService:
             self.misses += 1
             self.cache[key] = bf
         return bf
+
+    def _program(self, req: ProgramRequest, vslice: VSlice, load=False):
+        """The step for ``vslice`` (its mesh, else its device) → (step,
+        abstract_args); (OutsideSlice, None) on a rank outside the slice.
+        ``load`` builds and loads the CUDA kernels the step launches."""
+        if not vslice.member:
+            return OutsideSlice(vslice.mesh), None
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeCell
+        from repro_torch.parallel.steps import step_kernels
+        cfg = get_config(req.arch, reduced=req.reduced)
+        cell = ShapeCell("custom", req.seq_len, req.global_batch,
+                         req.kind)
+        target = vslice.mesh if vslice.mesh is not None else vslice.device
+        kw = {}
+        if req.kind == "train" and req.opt_flags:
+            from repro_torch.optim import OptConfig
+            kw["opt_cfg"] = OptConfig(**dict(req.opt_flags))
+        step, abstract_args = self._build(cfg, target, cell, **kw)
+        if vslice.mesh is not None:
+            step.mesh = target
+            device_type = target.device_type
+        else:
+            device_type = getattr(target, "type", None)
+        if load and device_type == "cuda":
+            from repro_torch.kernels import common
+            for name in step_kernels(req.kind, cfg):
+                common.library(name)          # nvcc at first use, then load
+        return step, abstract_args
 
 
 class ProgramLoader:
@@ -233,6 +274,17 @@ class ProgramLoader:
             raise LegalityError(
                 "bitfile is bound to a different slice (the paper's "
                 "cross-PRR reprogram attack) — VMM must re-bind it")
+        mesh = getattr(bitfile.compiled, "mesh", None)
+        if vslice.mesh is not None and mesh is not None \
+                and mesh is not vslice.mesh:
+            # its collectives would run over another slice's ranks
+            if self.auditor:
+                self.auditor.record("cross_slice_reprogram", owner,
+                                    {"bitfile_mesh": mesh.mesh.tolist(),
+                                     "target_slice": vslice.fingerprint})
+            raise LegalityError(
+                "program is bound to another slice's mesh (its collectives "
+                "would run over that slice's ranks) — VMM must re-bind it")
 
     def load(self, bitfile: Bitfile, vslice: VSlice, quiesce: Callable,
              owner: str = "?") -> LoadedProgram:

@@ -217,6 +217,11 @@ class DataPlane:
                 detail: Optional[dict] = None):
         return self.submit(tenant, op, work, detail).result()
 
+    def drain(self, tenant):
+        """Return once every op submitted for ``tenant`` so far has run.
+        Here ops run on their callers' threads, so there is no queue to
+        wait for (the tenant's quiesce waits for those in flight)."""
+
     # -- shared service path -------------------------------------------
     def _make_job(self, tenant, op, work, detail) -> _Job:
         with self._lock:
@@ -394,6 +399,21 @@ class _QueuedPlane(DataPlane):
                 self._note_depth(entry)
             dt = self._run_job(job)
             self._charge(entry, dt)
+            with self._cv:
+                self._cv.notify_all()       # wakes drain()
+
+    def drain(self, tenant):
+        # a tenant's ops run one at a time in submission order: wait
+        # until as many have ended as had been submitted
+        with self._cv:
+            e = self._entries.get(tenant.name)
+            if e is None:
+                return
+            target = e.stats.submitted
+            while (e.stats.completed + e.stats.failed < target
+                   and self._entries.get(tenant.name) is e
+                   and not self._stop.is_set()):
+                self._cv.wait(timeout=0.05)
 
     def _pick(self):  # holds: _lock
         """Return (job, entry, retry_delay); job is peeked, not popped.

@@ -95,13 +95,33 @@ class TransferEngine:
         return self._staging
 
     def h2d(self, guest_array: np.ndarray, device=None,
-            dtype: torch.dtype = None) -> torch.Tensor:
+            dtype: torch.dtype = None, sharding=None):
         """Guest buffer → device tensor. ``device`` None means the card
         (raises when there is none), as for ``jax.device_put`` with no
         target; CPU callers pass ``device="cpu"``. ``dtype=torch.bfloat16``
         takes ``guest_array`` as the int16 bits :meth:`d2h` gives for a
-        bf16 tensor and views the result back as bf16."""
-        device = _resolve_device(device)
+        bf16 tensor and views the result back as bf16.
+
+        ``sharding`` — the port's ``NamedSharding``: ``(mesh, spec)``, a
+        ``DeviceMesh`` and a ``parallel.partition`` spec — places the
+        array over the mesh instead: a rank of the mesh stages and copies
+        only its own block of the host array and gets a DTensor; a rank
+        outside the mesh moves nothing and gets None."""
+        if sharding is not None:
+            from repro_torch.parallel import partition as part
+            mesh, spec = sharding
+            if mesh.get_coordinate() is None:
+                return None
+            from repro_torch.models.model import mesh_device
+            shape = tuple(guest_array.shape)
+            block = part.local_block(torch.from_numpy(
+                np.ascontiguousarray(guest_array)), spec, mesh).numpy()
+            local = self._put(block, mesh_device(mesh), dtype)
+            return part.from_local(local, spec, mesh, shape)
+        return self._put(guest_array, _resolve_device(device), dtype)
+
+    def _put(self, guest_array: np.ndarray, device: torch.device,
+             dtype: torch.dtype = None) -> torch.Tensor:
         guest_array = np.ascontiguousarray(guest_array)
         if dtype == torch.bfloat16 and guest_array.dtype != np.int16:
             raise ValueError("a bf16 tensor crosses as int16 bits, got "
@@ -136,8 +156,12 @@ class TransferEngine:
     def d2h(self, device_array: torch.Tensor) -> np.ndarray:
         """Device tensor → host array. numpy has no bfloat16, so a bf16
         tensor crosses as its int16 bits (``h2d(..., dtype=torch.bfloat16)``
-        views them back)."""
+        views them back). A DTensor gives the whole array on each rank
+        of its mesh (gathered inside the mesh: every member calls it)."""
+        from torch.distributed.tensor import DTensor
         t0 = time.perf_counter_ns()
+        if isinstance(device_array, DTensor):
+            device_array = device_array.full_tensor()
         if device_array.device.type == "cuda":
             torch.cuda.current_stream(device_array.device).synchronize()
         t = device_array.detach()

@@ -46,8 +46,10 @@ class GuestDevice:
     def read(self, handle: int) -> np.ndarray:
         return self._vmm.op_read(self._tenant, handle)
 
-    def write(self, handle: int, data: np.ndarray):
-        return self._vmm.op_write(self._tenant, handle, data)
+    def write(self, handle: int, data: np.ndarray, sharding=None):
+        """``sharding``: ``(mesh, spec)`` places the data over the slice's
+        mesh (see ``TransferEngine.h2d``)."""
+        return self._vmm.op_write(self._tenant, handle, data, sharding)
 
     def get_info(self) -> dict:
         return self._vmm.op_get_info(self._tenant)
@@ -78,8 +80,9 @@ class GuestDevice:
     def run_async(self, *args, **kw):
         return self._vmm.op_run_async(self._tenant, *args, **kw)
 
-    def write_async(self, handle: int, data: np.ndarray):
-        return self._vmm.op_write_async(self._tenant, handle, data)
+    def write_async(self, handle: int, data: np.ndarray, sharding=None):
+        return self._vmm.op_write_async(self._tenant, handle, data,
+                                        sharding)
 
     def read_async(self, handle: int):
         return self._vmm.op_read_async(self._tenant, handle)

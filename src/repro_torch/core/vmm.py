@@ -27,15 +27,37 @@ slice-failure handling via live migration, and the per-tenant device
 memory quota. Straggler detection, op queueing, and scheduler statistics
 are delegated to the selected ``DataPlane``.
 
-This is the PyTorch port of ``repro.core.vmm``: the pod is a 2-D grid of
-``torch.device`` (or any object with ``.devices``), a tenant's programs
-and buffers live on its slice's single device, and each tenant's MMU
-pool is sized from the free memory of its slice's cards (a card that
-several grid entries name is shared among them) unless ``hbm_per_chip``
-is given (which a CPU grid must give). A slice of k entries of a
-one-card view runs on that card with k shares of its memory, so
-migration and the elastic grow and shrink (``repro_torch.core.elastic``)
-work on one card; the ``autoscaler`` hook is set by
+This is the PyTorch port of ``repro.core.vmm``. The pod is one of:
+
+* **A ``DeviceMesh``** of ranks (``launch.mesh.make_local_mesh((2,
+  4))``), as the reference's VMM takes a ``Mesh``. PyTorch drives one
+  card a process, so every rank runs the same script and this same
+  control plane, making the same calls in the same order: every rank
+  holds the same floorplan, MMU pools, oplog and program cache. A
+  tenant's slice has a mesh over its rectangle of ranks; its programs
+  are the mesh step builders' and its data DTensors on that mesh
+  (``write(..., sharding=(mesh, spec))``). A rank outside a tenant's
+  slice records each of the tenant's ops in the oplog and scheduler as
+  the members do, but runs no step, moves no data and gets None back.
+  The pools are sized from one table of every rank's free card memory,
+  gathered once here (``all_gather_object``), so every rank sizes every
+  pool alike; a CPU pod must give ``hbm_per_chip``. These control-plane
+  collectives run over a group of their own (``control_group``). A
+  checkpoint of a tenant waits for the tenant's submitted ops to end on
+  every rank, is gathered inside its slice's mesh, written once by the
+  slice's first rank, and followed by a barrier over the world before
+  any rank restores it, so a migration or grow may restore it on other
+  ranks (``migrate_tenant(..., shardings_fn=)``).
+* **A 2-D grid of ``torch.device``** (or any object with ``.devices``),
+  in one process: a tenant's programs and buffers live on its slice's
+  single device, and each tenant's MMU pool is sized from the free
+  memory of its slice's cards (a card that several grid entries name is
+  shared among them) unless ``hbm_per_chip`` is given (which a CPU grid
+  must give). A slice of k entries of a one-card view runs on that card
+  with k shares of its memory, so migration and the elastic grow and
+  shrink (``repro_torch.core.elastic``) work on one card.
+
+The ``autoscaler`` hook is set by
 :class:`repro_torch.core.autoscaler.Autoscaler` when one attaches.
 """
 from __future__ import annotations
@@ -48,6 +70,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpointing import checkpoint as ckpt_mod
 from repro_torch.core import mmu as mmu_mod
 from repro_torch.core.interposition import OpLog, TenantCheckpointer
 from repro_torch.core.isolation import IsolationAuditor
@@ -80,6 +103,33 @@ def device_memory_bytes(device) -> int:
     return free
 
 
+def rank_memory_table(pod_mesh, group) -> list:
+    """Every rank's free card memory, indexed by rank: gathered once over
+    ``group``, a group over every rank (every rank calls this), so every
+    rank sizes every pool from the same table."""
+    import torch.distributed as dist
+    if pod_mesh.device_type != "cuda":
+        raise ValueError(f"no device memory size for a pod of "
+                         f"{pod_mesh.device_type} ranks: pass hbm_per_chip")
+    from repro_torch.models.model import mesh_device
+    table = [None] * dist.get_world_size()
+    dist.all_gather_object(table,
+                           device_memory_bytes(mesh_device(pod_mesh)),
+                           group=group)
+    return table
+
+
+def world_barrier(pod_mesh, group=None):
+    """A barrier over every rank (``group``, default the world's; on the
+    NCCL backend, on this rank's card)."""
+    import torch.distributed as dist
+    if pod_mesh.device_type == "cuda":
+        dist.barrier(group=group,
+                     device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier(group=group)
+
+
 class VMM:
     def __init__(self, device_grid, policy: str = "hybrid",
                  mmu_backend: str = "bitmap",
@@ -91,15 +141,19 @@ class VMM:
                  oplog_sampling: float = 1.0,
                  scheduler_opts: Optional[dict] = None,
                  obs: Optional[ObsHub] = None):
-        """``device_grid``: a 2-D array of ``torch.device`` (or an object
-        whose ``.devices`` is one). ``hbm_per_chip`` is the memory of
-        one grid entry; ``None`` sizes each tenant's pool from the free
-        memory of its cards at admission, each card divided among the
-        grid entries that name it. ``ckpt_root=None`` keeps tenant
-        checkpoints in a fresh temporary directory."""
+        """``device_grid``: a pod ``DeviceMesh`` (every rank of the world
+        constructs the VMM), or a 2-D array of ``torch.device`` (or an
+        object whose ``.devices`` is one). ``hbm_per_chip`` is the memory
+        of one grid entry; ``None`` sizes each tenant's pool from the
+        free memory of its ranks' cards (gathered once, here) or, on a
+        device grid, of its cards at admission, each card divided among
+        the grid entries that name it. ``ckpt_root=None`` keeps tenant
+        checkpoints in a fresh temporary directory (on a pod mesh, one
+        that rank 0 makes and every rank of the host uses; ranks on
+        several hosts need a ``ckpt_root`` they all see)."""
         assert policy in POLICIES
         if device_grid is None:
-            raise ValueError("VMM needs a device grid (torch devices)")
+            raise ValueError("VMM needs a pod mesh or a device grid")
         self.policy = policy
         self.mmu_backend = mmu_backend
         self.hbm_per_chip = hbm_per_chip
@@ -110,7 +164,20 @@ class VMM:
         # launch/serve.py) to turn the lights on.
         self.obs = obs if obs is not None else NULL_HUB
         self.floorplanner = Floorplanner(device_grid)
-        if hbm_per_chip is None:
+        #: the pod's DeviceMesh (None on a device grid)
+        self.pod_mesh = self.floorplanner.pod_mesh
+        #: on a pod mesh, a group over every rank for the control plane's
+        #: own collectives (the pool table, agreements, the checkpoint
+        #: barrier): never one a slice's steps use, as the world's group
+        #: is when a slice's axis spans the world
+        self.control_group = None
+        if self.pod_mesh is not None:
+            import torch.distributed as dist
+            self.control_group = dist.new_group()
+        if hbm_per_chip is None and self.pod_mesh is not None:
+            self._rank_bytes = rank_memory_table(self.pod_mesh,
+                                                 self.control_group)
+        elif hbm_per_chip is None:
             # grid entries per physical card: the entries of a 1×3 view
             # of one card share that card's memory three ways
             self._views = collections.Counter(
@@ -123,16 +190,27 @@ class VMM:
         self.transfer = TransferEngine(mode=transfer_mode, obs=self.obs)
         self.compiler = CompileService()
         self.loader = ProgramLoader(auditor=self.auditor)
+        if ckpt_root is None and self.pod_mesh is not None:
+            from repro_torch.launch.mesh import shared_tempdir
+            # one for every rank
+            ckpt_root = shared_tempdir("vmm_ckpt_", self.control_group)
         self.checkpointer = TenantCheckpointer(
             ckpt_root if ckpt_root is not None
             else tempfile.mkdtemp(prefix="vmm_ckpt_"))
         self.tenants: Dict[str, Tenant] = {}   # guarded-by: _lock
         self._lock = threading.Lock()
+        scheduler_opts = dict(scheduler_opts or {})
+        if policy == "slo" and self.pod_mesh is not None \
+                and self.pod_mesh.size() > 1:
+            # the admission gate decides from the pool, which every rank
+            # holds alike, at each submission: no cached reading and no
+            # deny window timed on one rank's clock (a denial on one rank
+            # of a slice alone would leave the others in a collective)
+            scheduler_opts.update(pressure_refresh_s=0.0, deny_hold_s=0.0)
         # Data-plane dispatch is fully delegated to the scheduler subsystem.
         self.plane = make_data_plane(policy, oplog=self.oplog,
                                      straggler_factor=straggler_factor,
-                                     obs=self.obs,
-                                     **(scheduler_opts or {}))
+                                     obs=self.obs, **scheduler_opts)
         # The elastic autoscaler hook: set by Autoscaler when one attaches.
         self.autoscaler = None
         # Legacy stats() trees re-registered as providers: the registry
@@ -166,6 +244,8 @@ class VMM:
     def _make_pool(self, vs) -> mmu_mod.SegmentPool:
         if self.hbm_per_chip is not None:
             total = vs.n_devices * self.hbm_per_chip
+        elif self.pod_mesh is not None:
+            total = sum(self._rank_bytes[r] for r in vs.ranks)
         else:
             total = sum(device_memory_bytes(card(d)) // self._views[card(d)]
                         for d in vs.devices.flatten())
@@ -173,6 +253,28 @@ class VMM:
             total_bytes=total, backend=self.mmu_backend,
             segment_bytes=self.segment_bytes, auditor=self.auditor,
             obs=self.obs)
+
+    def agree(self, value, src: int):
+        """``value`` as rank ``src`` holds it, on every rank of a pod mesh
+        (every rank calls this; broadcast over the control group); on a
+        device grid, ``value``."""
+        if self.pod_mesh is None:
+            return value
+        import torch.distributed as dist
+        box = [value]
+        dist.broadcast_object_list(box, src=src, group=self.control_group)
+        return box[0]
+
+    def _drain(self, t: Tenant):
+        """On a pod mesh, wait until every op of ``t`` submitted so far has
+        run, so a gather over its slice's mesh that follows is issued after
+        the ops' collectives on every rank (its ops run on a plane's worker
+        thread, the gather on the caller's)."""
+        if self.pod_mesh is None:
+            return
+        self.plane.drain(t)
+        with t.quiesce():
+            pass
 
     def card_bytes(self, device) -> int:
         """What the grid entries naming ``device``'s card divide among
@@ -321,7 +423,15 @@ class VMM:
     # ==================================================================
     # Data plane (delegated to the scheduler subsystem — see scheduler.py)
     # ==================================================================
-    def _write_work(self, t: Tenant, handle: int, data: np.ndarray):
+    # A rank outside the tenant's slice (pod mesh) runs each op's
+    # bookkeeping (translation checks, IRQs, the step count) and nothing
+    # of its data path: no transfer, no step, None back. Every op of one
+    # tenant runs one at a time, in submission order, on every plane
+    # (passthrough: the caller's thread; queued: one worker, FIFO a
+    # tenant), so a slice's collectives are issued in one order on all
+    # of its ranks.
+    def _write_work(self, t: Tenant, handle: int, data: np.ndarray,
+                    sharding):
         def work():
             t.pool.translate(handle, owner=t.name)   # ownership + bounds
             buf = t.buffers[handle]
@@ -329,8 +439,16 @@ class VMM:
                 raise mmu_mod.IsolationViolation(
                     f"write of {data.nbytes} B exceeds buffer "
                     f"{buf.nbytes} B")
-            buf.device_array = self.transfer.h2d(data,
-                                                 device=t.vslice.device)
+            if sharding is not None:
+                if sharding[0] is not t.vslice.mesh:
+                    raise mmu_mod.IsolationViolation(
+                        "a write placed on a mesh other than the "
+                        "tenant's slice's")
+                buf.device_array = self.transfer.h2d(data,
+                                                     sharding=sharding)
+            elif t.vslice.member:
+                buf.device_array = self.transfer.h2d(
+                    data, device=t.vslice.device)
             return handle
         return work
 
@@ -338,6 +456,8 @@ class VMM:
         def work():
             t.pool.translate(handle, owner=t.name)
             buf = t.buffers[handle]
+            if not t.vslice.member:
+                return None
             if buf.device_array is None:
                 raise mmu_mod.MMUError("buffer not written")
             return self.transfer.d2h(buf.device_array)
@@ -345,20 +465,25 @@ class VMM:
 
     def _run_work(self, t: Tenant, args, kw):
         def work():
-            out = t.program(*args, **kw)
+            out = t.program(*args, **kw) if t.vslice.member else None
             t.cq.raise_event(IRQ_DONE, "run_done", {"step": t.step})
             t.step += 1
             return out
         return work
 
-    def op_write(self, t: Tenant, handle: int, data: np.ndarray):
+    def op_write(self, t: Tenant, handle: int, data: np.ndarray,
+                 sharding=None):
+        """``sharding``: ``(mesh, spec)`` over the tenant's slice's mesh
+        (the reference's ``NamedSharding``); without it the data goes to
+        the slice's one device."""
         return self.plane.execute(t, "write",
-                                  self._write_work(t, handle, data),
+                                  self._write_work(t, handle, data, sharding),
                                   {"handle": handle, "nbytes": data.nbytes})
 
-    def op_write_async(self, t: Tenant, handle: int, data: np.ndarray):
+    def op_write_async(self, t: Tenant, handle: int, data: np.ndarray,
+                       sharding=None):
         return self.plane.submit(t, "write",
-                                 self._write_work(t, handle, data),
+                                 self._write_work(t, handle, data, sharding),
                                  {"handle": handle, "nbytes": data.nbytes})
 
     def op_read(self, t: Tenant, handle: int) -> np.ndarray:
@@ -386,24 +511,54 @@ class VMM:
     # Fault tolerance: checkpoint / restore / migrate (interposition)
     # ==================================================================
     def checkpoint_tenant(self, t: Tenant) -> str:
+        """Snapshot the tenant's state. On a pod mesh every rank first
+        waits for the tenant's submitted ops to end; the slice's ranks
+        gather the state inside the slice's mesh and its first rank
+        writes it; then every rank of the world meets at a barrier, so no
+        rank restores before the commit."""
+        self._drain(t)
         rec = self.oplog.begin(t.name, "checkpoint", {"step": t.step})
         meta = {"step": t.step,
                 "program": (t.program_request.__dict__
                             if t.program_request else None)}
-        path = self.checkpointer.snapshot(t.name, t.step, t.state, meta)
+        if t.vslice.member:
+            if t.vslice.mesh is not None and t.vslice.n_devices > 1 and \
+                    not ckpt_mod.all_dtensors(t.state):
+                # each member would write its own copy of a plain leaf
+                raise ValueError("a slice over several ranks holds its "
+                                 "state as DTensors over its mesh")
+            path = self.checkpointer.snapshot(t.name, t.step, t.state,
+                                              meta)
+        else:
+            path = self.checkpointer.step_path(t.name, t.step)
+        if self.pod_mesh is not None:
+            world_barrier(self.pod_mesh, self.control_group)
         self.oplog.end(rec)
         return path
 
-    def restore_tenant(self, t: Tenant, template, device=None):
-        """Restore the tenant's newest checkpoint onto ``device`` (default:
-        its slice's device)."""
+    def restore_tenant(self, t: Tenant, template, shardings_tree=None,
+                       device=None):
+        """Restore the tenant's newest checkpoint: with ``shardings_tree``
+        (``(mesh, spec)`` at each leaf of ``template``) as DTensors over
+        those meshes, else onto ``device`` (default: its slice's device;
+        a slice over several ranks has none, so its state needs
+        ``shardings_tree``). A rank outside the slice reads the step and
+        meta only and holds None at each leaf."""
         rec = self.oplog.begin(t.name, "restore", {})
-        step, state, meta = self.checkpointer.restore(
-            t.name, template,
-            device if device is not None else t.vslice.device)
+        try:
+            if shardings_tree is None and device is None \
+                    and t.vslice.member:
+                device = t.vslice.device    # raises over several ranks
+            if shardings_tree is None and not t.vslice.member:
+                step, meta = self.checkpointer.manifest(t.name)
+                state = ckpt_mod.tree_map(lambda _: None, template)
+            else:
+                step, state, meta = self.checkpointer.restore(
+                    t.name, template, shardings_tree, device)
+        finally:
+            self.oplog.end(rec)
         t.state = state
         t.step = step
-        self.oplog.end(rec)
         return meta
 
     def mark_slice_failed(self, slice_id: int):
@@ -426,19 +581,26 @@ class VMM:
     def migrate_tenant(self, t: Tenant, new_shape=None,
                        state_template=None, shardings_fn=None) -> Tenant:
         """Live migration: checkpoint → re-floorplan → re-bind program →
-        restore onto the new slice's device (its one card). Also the
-        elastic grow/shrink primitive. ``shardings_fn`` (the reference's
-        re-sharding of the restored state over the new slice) must be
-        ``None``: state sharded across cards is not ported."""
-        if shardings_fn is not None:
-            raise NotImplementedError(
-                "shardings_fn: re-sharding a restored state over a "
-                "multi-card slice is not ported yet (ROADMAP item 9.1, "
-                "multi-card VSlices)")
+        restore (re-sharded). Also the elastic grow/shrink primitive.
+        ``shardings_fn(vs)`` gives the tree of ``(mesh, spec)`` that
+        places the restored state over the new slice's mesh (a pod mesh
+        only: a device grid has no mesh, so there it raises ValueError);
+        without it the state is restored onto the new slice's device."""
+        if shardings_fn is not None and self.pod_mesh is None:
+            raise ValueError(
+                "shardings_fn: this VMM's pod is a device grid, which has "
+                "no mesh to place a state on (carve slices from a pod "
+                "DeviceMesh)")
+        self._drain(t)
         rec = self.oplog.begin(t.name, "migrate",
                                {"from": t.vslice.spec.shape,
                                 "to": new_shape or t.vslice.spec.shape})
-        if t.state:
+        # the slice's first rank holds the state: its answer is every
+        # rank's, so all of them checkpoint (and meet at its barrier) or
+        # none
+        has_state = self.agree(bool(t.state), t.vslice.ranks[0]) \
+            if self.pod_mesh is not None else bool(t.state)
+        if has_state:
             self.checkpoint_tenant(t)
         shape = new_shape or t.vslice.spec.shape
         old_slice = t.vslice
@@ -465,8 +627,9 @@ class VMM:
         if t.program_request is not None:
             bf = self.compiler.compile(t.program_request, vs)
             t.program = self.loader.load(bf, vs, t.quiesce, owner=t.name)
-        if t.state and state_template is not None:
-            self.restore_tenant(t, state_template)
+        if has_state and state_template is not None:
+            shardings_tree = shardings_fn(vs) if shardings_fn else None
+            self.restore_tenant(t, state_template, shardings_tree)
         self.oplog.end(rec)
         return t
 

@@ -54,6 +54,33 @@ def make_local_mesh(shape=None, axes=("data", "model"), device_type=None):
     return init_device_mesh(dtype, shape, mesh_dim_names=tuple(axes))
 
 
+def pod_rows(world: int):
+    """→ (pod shape, row shape) of the reference's virtualization pods
+    for ``world`` ranks: two rows of ``world / 2`` (its examples' (2, 4)
+    grid of (1, 4) slices at 8 ranks), or (1, 1) and (1, 1) for one
+    rank."""
+    if world == 1:
+        return (1, 1), (1, 1)
+    if world % 2:
+        raise ValueError(f"{world} ranks: a pod of two rows needs an even "
+                         "world")
+    return (2, world // 2), (1, world // 2)
+
+
+def shared_tempdir(prefix: str, group=None) -> str:
+    """A temporary directory made by rank 0 and its path broadcast to
+    every rank (every rank calls this; ``group``: a group over every
+    rank, default the world's): where the ranks of one host keep files
+    they all read, such as a VMM's tenant checkpoints."""
+    import tempfile
+
+    import torch.distributed as dist
+    box = [tempfile.mkdtemp(prefix=prefix) if dist.get_rank() == 0
+           else None]
+    dist.broadcast_object_list(box, src=0, group=group)
+    return box[0]
+
+
 def make_production_mesh(*, multi_pod: bool = False, device_type=None):
     """The reference's production meshes: 16×16 ("data", "model"), or
     2×16×16 with a leading "pod" axis. Raises unless the group has that

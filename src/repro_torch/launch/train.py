@@ -24,16 +24,18 @@ after step k, so a resumed run goes on at step k + 1 and repeats the
 uninterrupted run's losses (the reference's launcher runs step k again).
 
 Under ``torchrun`` (a process group in the environment: ``WORLD_SIZE``,
-``RANK``, ``MASTER_ADDR``/``MASTER_PORT``) the launcher builds the
+``RANK``, ``MASTER_ADDR``/``MASTER_PORT``), or called by a process that
+has initialised a group already, the launcher builds the
 reference's ``(1, world)`` mesh (``launch.mesh.make_local_mesh``: NCCL
 on the cards, one a rank; gloo with ``--device cpu``) and trains through
 the mesh step builder: every rank makes the same parameters and the same
 global batches and keeps its blocks under the partition rules; rank 0
-prints. Checkpoints (``--ckpt-dir``, ``--ckpt-every``), ``--resume``,
-``--fail-at``, ``--virtualized`` and ``--micro-steps`` are not ported
-on a mesh (the checkpoint manager and the VMM's programs hold whole
-trees on one device): the launcher refuses each of them there, and
-saves no checkpoint.
+prints. Checkpoints there hold the same whole leaves as the one-process
+driver's (each gathered inside the mesh, written once by rank 0), so
+either driver, and the reference's ``restore``, reads them; ``--resume``
+places each leaf back over the ``(1, world)`` mesh with the rules'
+placements. ``--virtualized`` and ``--micro-steps`` are refused there
+(:data:`MESH_REFUSED` gives why).
 """
 from __future__ import annotations
 
@@ -47,6 +49,15 @@ import numpy as np
 import torch
 
 FAIL_EXIT = 17
+
+#: the flags the driver refuses under ``torchrun``, and why
+MESH_REFUSED = {
+    "--virtualized": "the reference's trains a (1, 1) slice of the first "
+                     "device whatever the mesh, which the one-process "
+                     "driver does: run it without torchrun",
+    "--micro-steps": "gradient accumulation on a mesh is not ported yet "
+                     "(ROADMAP item 9.2)",
+}
 
 
 def opt_config(cfg, steps, micro_steps=1, grad_compress=False):
@@ -90,10 +101,8 @@ def main(argv=None):
     args = parse_args(argv)
     from repro_torch import optim
     from repro_torch.bridge import batch_from_numpy
-    from repro_torch.checkpointing import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeCell
-    from repro_torch.data import pipeline_for
     from repro_torch.models import Model, resolve_device
     from repro_torch.parallel import build_train
 
@@ -102,27 +111,12 @@ def main(argv=None):
     cell = ShapeCell("cli", args.seq, args.batch, "train")
     opt_cfg = opt_config(cfg, args.steps, args.micro_steps,
                          args.grad_compress)
-    if "WORLD_SIZE" in os.environ:
+    import torch.distributed as dist
+    if "WORLD_SIZE" in os.environ or dist.is_initialized():
         return train_on_mesh(args, cfg, cell, opt_cfg, device)
-    model = Model(cfg, device=device)
-
-    pipe = pipeline_for(cfg, cell, seed=0)
-    ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(),
-                                             "vpod_train_ckpt")
-    mgr = CheckpointManager(ckpt_dir, keep_n=2, save_interval=(
-        10 if args.ckpt_every is None else args.ckpt_every))
-
-    params = model.init(torch.Generator(device=device).manual_seed(0))
-    opt_state = optim.init(opt_cfg, params)
-    first = 0
-    if args.resume:
-        restored = mgr.restore_latest({"params": params, "opt": opt_state},
-                                      device=device)
-        if restored is not None:
-            saved, tree, _ = restored
-            params, opt_state = tree["params"], tree["opt"]
-            first = saved + 1
-            print(f"[train] resumed from step {saved}")
+    params = Model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(0))
+    state = {"params": params, "opt": optim.init(opt_cfg, params)}
 
     vmm = tenant = None
     if args.virtualized:
@@ -131,7 +125,7 @@ def main(argv=None):
         grid[0, 0] = device
         vmm = VMM(grid, policy=args.policy,
                   hbm_per_chip=None if device.type == "cuda" else 1 << 30,
-                  ckpt_root=ckpt_dir + "_vmm")
+                  ckpt_root=ckpt_dir_of(args) + "_vmm")
         tenant = vmm.create_vm("trainer", (1, 1))
         tenant.device.open()
         req = ProgramRequest(
@@ -143,60 +137,98 @@ def main(argv=None):
     else:
         run, _ = build_train(cfg, device, cell, opt_cfg)
 
-    losses = {}
-    t_start = time.perf_counter()
-    try:
-        for step in range(first, args.steps):
-            if args.fail_at and step == args.fail_at:
-                print(f"[train] simulated failure at step {step} — restart "
-                      f"with --resume")
-                raise SystemExit(FAIL_EXIT)
-            batch = batch_from_numpy(pipe.batch(step), device)
-            t0 = time.perf_counter()
-            params, opt_state, metrics = run(params, opt_state, batch)
-            loss = losses[step] = float(metrics["loss"])
-            dt = time.perf_counter() - t0
-            if step % 5 == 0 or step == args.steps - 1:
-                print(f"[train] step={step:4d} loss={loss:8.4f} "
-                      f"lr={float(metrics['lr']):.2e} "
-                      f"gnorm={float(metrics['grad_norm']):7.3f} "
-                      f"dt={dt*1e3:7.1f}ms")
-            if mgr.should_save(step):
-                mgr.save(step, {"params": params, "opt": opt_state},
-                         meta={"arch": args.arch})
-    finally:
-        mgr.close()
-    total = time.perf_counter() - t_start
-    print(f"[train] done: {args.steps - first} steps in {total:.1f}s")
+    losses, state = run_steps(args, cfg, cell, run, state,
+                              lambda b: batch_from_numpy(b, device),
+                              device=device)
     if vmm is not None:
-        tenant.state = {"params": params, "opt": opt_state}
+        tenant.state = state
         vmm.checkpoint_tenant(tenant)
         print("[train] vmm stats:", vmm.stats())
         vmm.shutdown()
     return losses
 
 
+def ckpt_dir_of(args) -> str:
+    return args.ckpt_dir or os.path.join(tempfile.gettempdir(),
+                                         "vpod_train_ckpt")
+
+
+def run_steps(args, cfg, cell, run, state, place, shardings=None,
+              device=None, lead=True):
+    """The driver's loop, on one device or over a mesh: resume from the
+    newest checkpoint in ``--ckpt-dir`` (with ``--resume``; restored onto
+    ``device``, or with ``shardings``, the tree of ``(mesh, spec)``, as
+    DTensors), then ``run`` the steps up to ``--steps`` on batches of
+    ``data.pipeline_for(cfg, cell, seed=0)`` put where ``run`` reads them
+    by ``place``, exit with :data:`FAIL_EXIT` at ``--fail-at`` and save
+    every ``--ckpt-every`` steps (on a mesh every rank gathers, the
+    first writes). Only ``lead`` prints. → ({step: loss}, state)."""
+    from repro_torch.checkpointing import CheckpointManager
+    from repro_torch.data import pipeline_for
+    mgr = CheckpointManager(ckpt_dir_of(args), keep_n=2, save_interval=(
+        10 if args.ckpt_every is None else args.ckpt_every))
+    losses = {}
+    try:
+        first = 0
+        if args.resume:
+            restored = mgr.restore_latest(state, shardings, device=device)
+            if restored is not None:
+                saved, state, _ = restored
+                first = saved + 1
+                if lead:
+                    print(f"[train] resumed from step {saved}")
+        pipe = pipeline_for(cfg, cell, seed=0)
+        t_start = time.perf_counter()
+        for step in range(first, args.steps):
+            if args.fail_at and step == args.fail_at:
+                if lead:
+                    print(f"[train] simulated failure at step {step} — "
+                          "restart with --resume")
+                raise SystemExit(FAIL_EXIT)
+            batch = place(pipe.batch(step))
+            t0 = time.perf_counter()
+            params, opt_state, metrics = run(state["params"], state["opt"],
+                                             batch)
+            state = {"params": params, "opt": opt_state}
+            loss = losses[step] = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            if lead and (step % 5 == 0 or step == args.steps - 1):
+                print(f"[train] step={step:4d} loss={loss:8.4f} "
+                      f"lr={float(metrics['lr']):.2e} "
+                      f"gnorm={float(metrics['grad_norm']):7.3f} "
+                      f"dt={dt*1e3:7.1f}ms")
+            if mgr.should_save(step):
+                mgr.save(step, state, meta={"arch": args.arch})
+    finally:
+        mgr.close()
+    if lead:
+        print(f"[train] done: {args.steps - first} steps in "
+              f"{time.perf_counter() - t_start:.1f}s")
+    return losses, state
+
+
 def train_on_mesh(args, cfg, cell, opt_cfg, device):
     """The training loop over the group's ``(1, world)`` mesh → {step:
-    loss}."""
+    loss}: the caller's process group when one is initialised, else one
+    from ``torchrun``'s environment."""
     import torch.distributed as dist
     from repro_torch import optim
     from repro_torch.bridge import batch_from_numpy
-    from repro_torch.data import pipeline_for
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import Model
     from repro_torch.models.model import mesh_device
     from repro_torch.parallel import build_train
     from repro_torch.parallel import partition as part
     refused = [flag for flag, on in (
-        ("--ckpt-dir", args.ckpt_dir is not None),
-        ("--ckpt-every", args.ckpt_every is not None),
-        ("--virtualized", args.virtualized), ("--resume", args.resume),
-        ("--fail-at", args.fail_at), ("--micro-steps",
-                                      args.micro_steps > 1)) if on]
+        ("--virtualized", args.virtualized),
+        ("--micro-steps", args.micro_steps > 1)) if on]
     if refused:
-        raise SystemExit(f"{', '.join(refused)}: not ported on a mesh")
-    dist.init_process_group("gloo" if device.type == "cpu" else "nccl")
+        raise SystemExit("; ".join(f"{flag}: not ported on a mesh ("
+                                   f"{MESH_REFUSED[flag]})"
+                                   for flag in refused))
+    own = not dist.is_initialized()     # else the caller's group
+    if own:
+        dist.init_process_group("gloo" if device.type == "cpu" else "nccl")
     try:
         world = dist.get_world_size()
         mesh = make_local_mesh((1, world), device_type=device.type)
@@ -207,32 +239,23 @@ def train_on_mesh(args, cfg, cell, opt_cfg, device):
             torch.Generator(device=device).manual_seed(0))
         opt_state = part.distribute(optim.init(opt_cfg, params),
                                     run.specs[1], mesh)
-        params = part.distribute(params, run.specs[0], mesh)
-        pipe = pipeline_for(cfg, cell, seed=0)
+        state = {"params": part.distribute(params, run.specs[0], mesh),
+                 "opt": opt_state}
+        del params, opt_state
         if lead:
             print(f"[train] mesh (1, {world}) over {device.type}: "
-                  f"{part.local_bytes(params)} parameter bytes a rank; no "
-                  "checkpoints on a mesh")
-        losses = {}
-        t_start = time.perf_counter()
-        for step in range(args.steps):
-            batch = part.distribute(batch_from_numpy(pipe.batch(step),
-                                                     device),
-                                    run.specs[2], mesh)
-            t0 = time.perf_counter()
-            params, opt_state, metrics = run(params, opt_state, batch)
-            loss = losses[step] = float(metrics["loss"])
-            dt = time.perf_counter() - t0
-            if lead and (step % 5 == 0 or step == args.steps - 1):
-                print(f"[train] step={step:4d} loss={loss:8.4f} "
-                      f"lr={float(metrics['lr']):.2e} "
-                      f"gnorm={float(metrics['grad_norm']):7.3f} "
-                      f"dt={dt*1e3:7.1f}ms")
-        if lead:
-            print(f"[train] done: {args.steps} steps in "
-                  f"{time.perf_counter() - t_start:.1f}s")
+                  f"{part.local_bytes(state['params'])} parameter bytes a "
+                  f"rank; checkpoints in {ckpt_dir_of(args)}")
+        losses, _ = run_steps(
+            args, cfg, cell, run, state,
+            lambda b: part.distribute(batch_from_numpy(b, device),
+                                      run.specs[2], mesh),
+            shardings={"params": part.shardings(run.specs[0], mesh),
+                       "opt": part.shardings(run.specs[1], mesh)},
+            lead=lead)
     finally:
-        dist.destroy_process_group()
+        if own:
+            dist.destroy_process_group()
     return losses
 
 

@@ -169,6 +169,21 @@ def map_specs(fn, tree, specs):
     return fn(tree, specs)
 
 
+def at_path(tree, path):
+    """The entry of ``tree`` (a spec or sharding tree) at a leaf's
+    ``path`` (dict keys and indices, as ``flatten_with_path`` gives)."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def shardings(specs, mesh):
+    """A spec tree → the tree of the port's ``NamedSharding``s, ``(mesh,
+    spec)`` at each leaf (what ``TransferEngine.h2d``, ``checkpointing
+    .restore`` and ``VMM.migrate_tenant``'s ``shardings_fn`` take)."""
+    return map_specs(lambda _, spec: (mesh, spec), specs, specs)
+
+
 def param_specs(cfg, params, mesh):
     """Spec tree matching ``params`` (tensors of any device, meta ones
     included): each leaf's rule, sanitized against its shape."""

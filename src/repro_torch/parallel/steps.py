@@ -184,12 +184,6 @@ def _live_axes(rm, axes):
     return tuple(a for a in axes if rm.sizes[a] > 1)
 
 
-def _spec_at(specs, path):
-    for k in path:
-        specs = specs[k]
-    return specs
-
-
 def _reduce_grads(rm, grads, specs):
     """Sum each gradient leaf over the live mesh axes its leaf is
     replicated on (its share from each rank → the whole), one
@@ -198,7 +192,7 @@ def _reduce_grads(rm, grads, specs):
     buckets = {}
     for path, g in flat:
         axes = _live_axes(rm, [a for a in rm.sizes if a not in
-                               part.sharded_axes(_spec_at(specs, path))])
+                               part.sharded_axes(part.at_path(specs, path))])
         if axes:
             buckets.setdefault((axes, g.dtype), []).append(path)
     out = dict(flat)
@@ -219,7 +213,7 @@ def _global_norm(rm, grads, specs):
     sums = {}
     for path, g in flatten_with_path(grads):
         axes = _live_axes(rm, sorted(part.sharded_axes(
-            _spec_at(specs, path))))
+            part.at_path(specs, path))))
         sums[axes] = sums.get(axes, 0.0) + g.float().square().sum()
     total = 0.0
     for axes in sorted(sums):

@@ -162,10 +162,13 @@ def test_grow_on_a_card_view_doubles_its_shares(tmp_path, monkeypatch):
 
 
 def test_sharded_restore_is_refused(tmp_path):
+    """A ``shardings_fn`` places a restored state over the new slice's
+    mesh; a device grid has none, so a resize with one raises ValueError
+    before anything moves."""
     vmm = port_vmm(tmp_path, rows=1, cols=2)
     try:
         t = vmm.create_vm("a", (1, 1))
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(ValueError, match="no mesh"):
             elastic.resize(vmm, t, (1, 2), shardings_fn=lambda vs: None)
         assert t.vslice.spec.shape == (1, 1)
     finally:

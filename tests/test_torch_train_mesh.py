@@ -2,8 +2,9 @@
 ``(1, world)`` mesh, the mesh step builder, the same pipeline batches;
 its losses against the one-process driver's (reduced qwen, bf16 compute:
 the model axis sums partial products rounded to bf16, so within 1e-3
-relative), and the flags that are not ported on a mesh refused
-(checkpoints among them)."""
+relative), and the flags it refuses on a mesh (``--micro-steps`` and
+``--virtualized``). Its checkpoints, ``--resume`` and ``--fail-at``:
+``tests/test_torch_vslice_train_driver.py``."""
 import os
 import re
 import subprocess
@@ -45,7 +46,10 @@ def test_torchrun_refuses_what_is_not_ported_on_a_mesh():
 
 
 def test_torchrun_refuses_checkpoints_on_a_mesh():
-    p = torchrun("--ckpt-dir", "ck", "--ckpt-every", "2")
+    """Checkpoints are ported on a mesh; ``--virtualized`` (the
+    reference's trains a (1, 1) slice whatever the mesh, which the
+    one-process driver does) is refused there, with its reason."""
+    p = torchrun("--virtualized")
     assert p.returncode != 0
-    assert "--ckpt-dir, --ckpt-every: not ported on a mesh" in \
-        p.stdout + p.stderr
+    assert "--virtualized: not ported on a mesh (the reference's trains " \
+        "a (1, 1) slice" in p.stdout + p.stderr

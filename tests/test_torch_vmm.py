@@ -401,14 +401,15 @@ def test_compile_cache_warm_rebind():
 def test_multi_device_slice_has_no_single_device(entries, card):
     """A (1, 2) slice whose entries name one device runs on that device
     (two shares of it); one whose entries name two cards has no single
-    device and raises (no ``torch.device`` needs a card to exist)."""
+    device and raises, naming the mesh a slice over several cards runs
+    on (no ``torch.device`` needs a card to exist)."""
     g = np.empty((1, 2), dtype=object)
     g[0, :] = list(entries)
     vs = Floorplanner(g).allocate((1, 2))
     assert vs.n_devices == 2
     if card is None:
         assert len(vs.cards) == 2
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(ValueError, match="mesh"):
             vs.device
     else:
         assert vs.cards == (card,)
