@@ -194,15 +194,25 @@ Phases, each printing its lines and raising on any failure:
    temp dir) and a (1, 1) mesh on the card: qwen1.5-0.5b at full width
    and depth (prefill B=4 S=2048 into rings of 4096, 16 decode steps, 4
    train steps of B=4 S=2048) and recurrentgemma-2b (12 layers) and
-   rwkv6-7b (8), prefill and decode, each against the device builders
-   on the same inputs: logits, caches, losses, grad norms and trained
-   parameters bit for bit (else the first differing leaf named and every
-   leaf held to 3e-2); flash, decode_attention, rglru_scan and rwkv6_wkv
-   launched on the mesh runs; both builders' step times. With two cards
-   or more, one NCCL rank a card on a (1, n) mesh runs
-   recurrentgemma-2b (3 layers: split-KV decode) and mixtral-8x7b (1
-   layer, ``moe_impl="ep"``: token routing) in fp32 against the
-   one-card builders within 1e-3; with one card a line says so.
+   rwkv6-7b (8), prefill and decode, internvl2-2b and whisper-medium at
+   full depth (prefill, decode, 2 train steps: the VLM projector and the
+   encoder on the mesh) and qwen's train with ``micro_steps=2``, each
+   against the device builders on the same inputs: logits, caches,
+   losses, grad norms and trained parameters bit for bit (else the
+   first differing leaf named and every leaf held to 3e-2); flash,
+   decode_attention, rglru_scan and rwkv6_wkv launched on the mesh runs;
+   both builders' step times. With two cards or more, one NCCL rank a
+   card on a (1, n) mesh runs recurrentgemma-2b (3 layers: split-KV
+   decode, and without it the ring gathered) and mixtral-8x7b (1 layer,
+   ``moe_impl="ep"``: token routing) in fp32 against the one-card
+   builders within 1e-3; with one card a line says so;
+20. dryrun — ``python -m repro_torch.launch.dryrun`` on qwen's train_4k
+   and decode_32k cells over both production meshes (CPU subprocess,
+   fake groups, meta tensors): every artifact ok; qwen's train step at
+   full width and depth (B=4 S=2048) counted by ``launch.op_analysis``
+   on the card and on meta: dot FLOPs and kernel records equal; the
+   roofline's lower bound beside the measured step p50; the card's
+   ``total_memory``.
 
 On every path, the launch counters are set to 0 just before it runs and
 read just after; each kernel of the path must have launched.
@@ -4117,13 +4127,21 @@ def time_recurrent_kernels(device):
 # ---------------------------------------------------------------------------
 
 #: arch, depth (None: full), the step kinds run through both builders
+#: (the frontends' at the depth ``TRAIN_FAMILIES`` cuts them to: full)
 SHARDED_ARCHS = (("qwen1.5-0.5b", None, ("prefill", "decode", "train")),
                  ("recurrentgemma-2b", 12, ("prefill", "decode")),
-                 ("rwkv6-7b", 8, ("prefill", "decode")))
+                 ("rwkv6-7b", 8, ("prefill", "decode")),
+                 ("internvl2-2b", None, ("prefill", "decode", "train")),
+                 ("whisper-medium", None, ("prefill", "decode", "train")))
 #: prefill B x S into rings of SHARDED_CAP, then SHARDED_DECODE decode
 #: steps; SHARDED_TRAIN train steps of B x S (qwen)
 SHARDED_B, SHARDED_S, SHARDED_CAP = 4, 2048, 4096
 SHARDED_DECODE, SHARDED_TRAIN = 16, 4
+#: the frontends' train steps: (B, S, steps) as ``TRAIN_FAMILIES`` sizes
+#: them, 2 steps; then qwen with ``micro_steps=2`` (2 steps of B x S)
+SHARDED_FRONTEND_TRAIN = {"internvl2-2b": (1, 2048, 2),
+                          "whisper-medium": (4, 512, 2)}
+SHARDED_MICRO = 2
 PATH_KERNELS["sharded"] = ("flash_attention", "decode_attention",
                            "rglru_scan", "rwkv6_wkv")
 #: the multi-card cases (when the machine shows two cards or more):
@@ -4135,6 +4153,7 @@ PATH_KERNELS["sharded"] = ("flash_attention", "decode_attention",
 #: drops differ by design; without drops both compute the same sums.
 #: (``tests/test_torch_moe_ep.py`` holds the drops to the reference's.)
 MULTI_CARD = (("recurrentgemma-2b", 3, {}),
+              ("recurrentgemma-2b", 3, {"decode_splitk": False}),
               ("mixtral-8x7b", 1, {"moe_impl": "ep"}))
 MULTI_B, MULTI_S, MULTI_CAP, MULTI_DECODE, MULTI_TOL = 4, 256, 512, 4, 1e-3
 
@@ -4173,14 +4192,27 @@ def _timed_call(device, fn, *args):
     return out, 1e3 * (time.perf_counter() - t)
 
 
+def frontend_inputs(cfg, B, device, gen):
+    """The stub frontend's inputs of a batch of ``B`` (the VLM's patches,
+    whisper's frames; none for the other families)."""
+    import torch
+    fe = cfg.frontend
+    if fe is None:
+        return {}
+    key = "patches" if cfg.family == "vlm" else "frames"
+    return {key: torch.randn((B, fe.n_tokens, fe.d_in), generator=gen,
+                             device=device)}
+
+
 def _serve_steps(cfg, target, device, params, toks, dec_toks,
-                 cap=SHARDED_CAP):
+                 cap=SHARDED_CAP, extra=None):
     """Prefill into rings of ``cap`` slots, then decode, through the
     builders for ``target`` (a device or a mesh) → (logits, caches,
     decode logits, prefill ms, decode ms a step); the prefill runs twice
-    and the second is timed."""
+    and the second is timed. ``extra``: the frontend's inputs."""
     import torch
     from repro_torch.configs.base import ShapeCell
+    from repro_torch.models import Model
     from repro_torch.parallel import partition as part
     from repro_torch.parallel import steps
     B = toks.shape[0]
@@ -4189,27 +4221,27 @@ def _serve_steps(cfg, target, device, params, toks, dec_toks,
     dec, _ = steps.build_decode(cfg, target, ShapeCell("d", cap, B,
                                                        "decode"))
     mesh = target if hasattr(target, "mesh_dim_names") else None
-    batch = {"tokens": toks}
+    batch = {"tokens": toks, **(extra or {})}
     if mesh is not None:
         params = part.distribute(params, pf.specs[0], mesh)
         batch = part.distribute(batch, pf.specs[1], mesh)
     pf(params, batch)
     (logits, caches), pf_ms = _timed_call(device, pf, params, batch)
     out, ms = [], []
+    start = toks.shape[1] + Model(cfg, device="meta").n_prefix
     for i, tok in enumerate(dec_toks):
         if mesh is not None:
             tok = part.distribute({"t": tok}, {"t": dec.specs[2]}, mesh)["t"]
-        pos = torch.tensor(toks.shape[1] + i, dtype=torch.int32,
-                           device=device)
+        pos = torch.tensor(start + i, dtype=torch.int32, device=device)
         (lg, caches), t = _timed_call(device, dec, params, caches, tok, pos)
         out.append(lg)
         ms.append(t)
     return logits, caches, out, pf_ms, statistics.median(ms[1:])
 
 
-def _train_steps(cfg, target, device, batches):
-    """``SHARDED_TRAIN`` steps from ``init``'s parameters (seed 0) →
-    (params, losses, grad norms, step p50 ms)."""
+def _train_steps(cfg, target, device, batches, micro_steps=1):
+    """A step a batch from ``init``'s parameters (seed 0) → (params,
+    losses, grad norms, step p50 ms)."""
     import torch
     from repro_torch import optim
     from repro_torch.configs.base import ShapeCell
@@ -4217,10 +4249,12 @@ def _train_steps(cfg, target, device, batches):
     from repro_torch.parallel import partition as part
     from repro_torch.parallel import steps
     B, S = batches[0]["tokens"].shape
-    run, _ = steps.build_train(cfg, target, ShapeCell("t", S, B, "train"))
+    opt = optim.OptConfig(state_dtype=cfg.opt_dtype, micro_steps=micro_steps)
+    run, _ = steps.build_train(cfg, target, ShapeCell("t", S, B, "train"),
+                               opt)
     params = Model(cfg, device).init(
         torch.Generator(device=device).manual_seed(0))
-    state = optim.init(optim.OptConfig(state_dtype=cfg.opt_dtype), params)
+    state = optim.init(opt, params)
     mesh = target if hasattr(target, "mesh_dim_names") else None
     if mesh is not None:
         params = part.distribute(params, run.specs[0], mesh)
@@ -4252,11 +4286,14 @@ def sharded_arch(device, mesh, smi, arch, depth, kinds, counts):
     dec_toks = [torch.randint(0, cfg.vocab, (SHARDED_B, 1), generator=gen,
                               device=device, dtype=torch.int32)
                 for _ in range(SHARDED_DECODE)]
+    extra = frontend_inputs(cfg, SHARDED_B, device, gen)
     params = Model(cfg, device).init_compute_params(
         torch.Generator(device=device).manual_seed(0))
-    one = _serve_steps(cfg, device, device, params, toks, dec_toks)
+    one = _serve_steps(cfg, device, device, params, toks, dec_toks,
+                       extra=extra)
     common.reset_launches()
-    got = _serve_steps(cfg, mesh, device, params, toks, dec_toks)
+    got = _serve_steps(cfg, mesh, device, params, toks, dec_toks,
+                       extra=extra)
     for k, n in common.LAUNCHES.items():
         counts[k] = counts.get(k, 0) + n
     del params
@@ -4272,28 +4309,38 @@ def sharded_arch(device, mesh, smi, arch, depth, kinds, counts):
     torch.cuda.empty_cache()
     if "train" not in kinds:
         return
-    batches = [{"tokens": torch.randint(0, cfg.vocab, (SHARDED_B, SHARDED_S),
-                                        generator=gen, device=device,
-                                        dtype=torch.int32),
-                "labels": torch.randint(0, cfg.vocab, (SHARDED_B, SHARDED_S),
-                                        generator=gen, device=device,
-                                        dtype=torch.int32),
-                "mask": torch.ones((SHARDED_B, SHARDED_S), device=device)}
-               for _ in range(SHARDED_TRAIN)]
-    one = _train_steps(cfg, device, device, batches)
-    common.reset_launches()
-    got = _train_steps(cfg, mesh, device, batches)
-    for k, n in common.LAUNCHES.items():
-        counts[k] = counts.get(k, 0) + n
-    _same(name, "train losses", torch.tensor(got[1]), torch.tensor(one[1]))
-    _same(name, "grad norms", torch.tensor(got[2]), torch.tensor(one[2]))
-    _same(name, f"parameters after {SHARDED_TRAIN} steps", _local(got[0]),
-          one[0])
-    log(f"[sharded] {smi}: {name} train B={SHARDED_B} S={SHARDED_S}: step "
-        f"p50 {got[3]:.1f} ms on the (1, 1) mesh vs {one[3]:.1f} ms through "
-        f"the device builder; losses {[round(x, 4) for x in got[1]]}")
-    del one, got
-    torch.cuda.empty_cache()
+    B, S, n_steps = SHARDED_FRONTEND_TRAIN.get(
+        arch, (SHARDED_B, SHARDED_S, SHARDED_TRAIN))
+    L = S + Model(cfg, device="meta").n_prefix
+
+    def ints(*shape):
+        return torch.randint(0, cfg.vocab, shape, generator=gen,
+                             device=device, dtype=torch.int32)
+    batches = [{"tokens": ints(B, S), "labels": ints(B, L),
+                "mask": torch.ones((B, L), device=device),
+                **frontend_inputs(cfg, B, device, gen)}
+               for _ in range(n_steps)]
+    runs = [(f"train B={B} S={S}", batches, 1)]
+    if arch == TRAIN_ARCH:
+        runs.append((f"train B={B} S={S} micro_steps={SHARDED_MICRO}",
+                     batches[:2], SHARDED_MICRO))
+    for what, bts, micro in runs:
+        one = _train_steps(cfg, device, device, bts, micro)
+        common.reset_launches()
+        got = _train_steps(cfg, mesh, device, bts, micro)
+        for k, n in common.LAUNCHES.items():
+            counts[k] = counts.get(k, 0) + n
+        _same(name, f"{what} losses", torch.tensor(got[1]),
+              torch.tensor(one[1]))
+        _same(name, f"{what} grad norms", torch.tensor(got[2]),
+              torch.tensor(one[2]))
+        _same(name, f"{what}: parameters after {len(bts)} steps",
+              _local(got[0]), one[0])
+        log(f"[sharded] {smi}: {name} {what}: step p50 {got[3]:.1f} ms on "
+            f"the (1, 1) mesh vs {one[3]:.1f} ms through the device "
+            f"builder; losses {[round(x, 4) for x in got[1]]}")
+        del one, got
+        torch.cuda.empty_cache()
 
 
 def multi_card_rank(rank, world, store, out):
@@ -4363,8 +4410,11 @@ def sharded_phase(device, launches, smi):
     steps) and recurrentgemma-2b and rwkv6-7b at full width cut as
     ``TRAIN_FAMILIES`` cuts them (prefill, decode), each against the
     device builders: equal bit for bit, or the leaf named and held to
-    3e-2; flash, decode_attention, rglru_scan and rwkv6_wkv launched on
-    the mesh runs. With two cards or more, one NCCL rank a card on a
+    3e-2; internvl2-2b and whisper-medium at full width and depth
+    (prefill, decode, 2 train steps at ``SHARDED_FRONTEND_TRAIN``'s
+    shapes) and qwen's train with ``micro_steps=2`` the same way; flash,
+    decode_attention, rglru_scan and rwkv6_wkv launched on the mesh
+    runs. With two cards or more, one NCCL rank a card on a
     (1, n) mesh runs ``MULTI_CARD`` against the one-card builders."""
     import tempfile
     import torch
@@ -4420,6 +4470,99 @@ def sharded_phase(device, launches, smi):
                 raise AssertionError(f"sharded multi-card {r['arch']}: "
                                      f"{r['max_abs_err']}")
     log(f"[sharded] took {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# [dryrun]: the production-mesh dry run, and its counter on the card
+# ---------------------------------------------------------------------------
+
+#: the dry run's cells run here (CPU subprocess, both production meshes)
+DRYRUN_ARGS = ("--arch", "qwen1.5-0.5b", "--shape", "train_4k,decode_32k",
+               "--mesh", "both")
+DRYRUN_STEPS = 3
+
+
+def dryrun_phase(device, smi):
+    """``python -m repro_torch.launch.dryrun`` on qwen's train_4k and
+    decode_32k cells over both production meshes (fake groups of 256 and
+    512 ranks on the CPU, meta tensors): every artifact ``ok``. Then
+    qwen1.5-0.5b's train step at full width and depth, at ``[train]``'s
+    shape (B=4 S=2048), counted twice by ``launch.op_analysis``: run on
+    the card and run on meta tensors; their dot FLOPs and kernel records
+    must be equal. The roofline's lower bound of that step (the counts
+    over the data-sheet peaks in ``launch.dryrun``) is printed beside
+    the step's measured p50 on the card."""
+    import tempfile
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_analysis import count_step
+    from repro_torch.models import Model
+    from repro_torch.parallel import build_train
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(device).total_memory
+    log(f"[dryrun] {smi}: total_memory {total} bytes (the dry run's "
+        f"HBM_BYTES {dryrun.HBM_BYTES})")
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        *DRYRUN_ARGS, "--out", out], capture_output=True,
+                       text=True, env=env, timeout=600)
+    for line in p.stdout.splitlines():
+        if "terms:" in line or "===" in line:
+            log(f"[dryrun] {line.strip()}")
+    if p.returncode != 0:
+        raise AssertionError(f"dryrun exited {p.returncode}:\n"
+                             f"{p.stdout[-2000:]}\n{p.stderr[-2000:]}")
+    arts = [n for n in os.listdir(out) if n.endswith(".json")]
+    for n in arts:
+        with open(os.path.join(out, n)) as f:
+            if not json.load(f)["ok"]:
+                raise AssertionError(f"dryrun: {n} is not ok")
+    log(f"[dryrun] {len(arts)} artifacts ok in "
+        f"{time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(out, ignore_errors=True)
+
+    cfg = get_config(TRAIN_ARCH)
+    cell = ShapeCell("train", TRAIN_S, TRAIN_B, "train")
+    step, _ = build_train(cfg, device, cell)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = Model(cfg, device).init(gen)
+    state = optim.init(optim.OptConfig(state_dtype=cfg.opt_dtype), params)
+
+    def ints():
+        return torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S), generator=gen,
+                             device=device, dtype=torch.int32)
+    batch = {"tokens": ints(), "labels": ints(),
+             "mask": torch.ones((TRAIN_B, TRAIN_S), device=device)}
+    ms = []
+    for _ in range(DRYRUN_STEPS):
+        (params, state, _), t = _timed_call(device, step, params, state,
+                                            batch)
+        ms.append(t)
+    card = count_step(step, (params, state, batch))
+    del params, state
+    torch.cuda.empty_cache()
+    meta_step, meta_args = build_train(cfg, torch.device("meta"), cell)
+    meta = count_step(meta_step, meta_args)
+    log(f"[dryrun] {TRAIN_ARCH} train B={TRAIN_B} S={TRAIN_S}: dot FLOPs "
+        f"{card.dot_flops} on the card, {meta.dot_flops} on meta; kernel "
+        f"records {card.kernels} / {meta.kernels}; HBM bytes (unfused) "
+        f"{card.mem_bytes} / {meta.mem_bytes}")
+    if card.dot_flops != meta.dot_flops or card.kernels != meta.kernels:
+        raise AssertionError("dryrun: the card's and meta's counts of the "
+                             "train step differ")
+    compute_s = card.dot_flops / dryrun.PEAK_FLOPS
+    memory_s = card.mem_bytes / dryrun.HBM_BW
+    p50 = statistics.median(ms[1:])
+    log(f"[dryrun] {smi}: {TRAIN_ARCH} train step B={TRAIN_B} S={TRAIN_S}: "
+        f"roofline lower bound {1e3 * max(compute_s, memory_s):.1f} ms "
+        f"(compute {1e3 * compute_s:.1f} ms at 989 TFLOP/s, unfused HBM "
+        f"bytes {1e3 * memory_s:.1f} ms at 3.35 TB/s; data-sheet peaks) "
+        f"beside the measured step p50 {p50:.1f} ms (steps {ms})")
+    log(f"[dryrun] took {time.perf_counter() - t0:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -4789,6 +4932,8 @@ def main():
     phase_done("long-context")
     sharded_phase(device, launches, smi)
     phase_done("sharded")
+    dryrun_phase(device, smi)
+    phase_done("dryrun")
     vslices_phase(device, launches, smi, failover, mux)
     del failover, mux
     phase_done("vslices")

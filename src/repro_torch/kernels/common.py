@@ -221,17 +221,38 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def on_cpu(*tensors) -> bool:
-    """True when every tensor lies on the CPU (→ the plain version);
-    False when every tensor lies on one CUDA device (→ the kernel).
-    Anything else raises: a wrapper never picks a path by itself."""
+def path(*tensors) -> str:
+    """Where a wrapper's call runs: ``"cpu"`` when every tensor lies on
+    the CPU (→ the plain version), ``"cuda"`` when every tensor lies on
+    one CUDA device (→ the kernel), ``"meta"`` when every tensor is a
+    meta tensor (→ empty outputs of the kernel's shapes and dtypes: no
+    launch and no plain version, so a step traced on meta holds only
+    what the kernel holds). Anything else raises: a wrapper never picks
+    a path by itself."""
     devs = {t.device for t in tensors}
     require(len(devs) == 1, f"tensors on several devices: {devs}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return True
-    require(dev.type == "cuda", f"no kernel for device {dev}")
-    return False
+    kind = devs.pop().type
+    require(kind in ("cpu", "cuda", "meta"), f"no kernel for device "
+                                              f"{tensors[0].device}")
+    return kind
+
+
+#: the active counter's record function (``launch/op_analysis.py`` sets
+#: it while it counts a step; None otherwise): called as
+#: ``recorder(name, flops, bytes_in, bytes_out)``
+recorder = None
+
+
+def record(name: str, flops: int, ins, outs):
+    """Report one kernel op's work — its dot FLOPs and the bytes it reads
+    (each input once) and writes — to the active counter, if any. Every
+    wrapper calls it on its kernel path and its meta path alike (the
+    plain version's own ops are counted where they run)."""
+    rec = recorder
+    if rec is not None:
+        rec(name, int(flops),
+            sum(t.numel() * t.element_size() for t in ins),
+            sum(t.numel() * t.element_size() for t in outs))
 
 
 def refuse_grad(name: str, device, *tensors):

@@ -77,6 +77,15 @@ def sample_plan(B, V, sm_count):
     return split_share(V, ctas, 4)
 
 
+def _record(name, q, keys, ins, out):
+    """Report a decode call's work (the scores and p·v of every query
+    head over all ``keys`` rows it may read, as the plain version and
+    the reference's XLA decode compute them) and return ``out``."""
+    B, _, Hq, hd = q.shape
+    common.record(name, 4 * B * Hq * keys * hd, ins, (out,))
+    return out
+
+
 def _check_kernel_shape(hd, Hq, Hkv):
     common.require(hd in HEAD_DIMS,
                    f"kernel takes hd in {HEAD_DIMS}, got {hd}")
@@ -116,10 +125,13 @@ def decode_attention_op(q, k_cache, v_cache, pos, *, window=0,
     on_dev = isinstance(pos, torch.Tensor)
     if on_dev:
         require(pos.dim() == 0, "pos must be a 0-d tensor or an int")
-    cpu = common.on_cpu(q, k_cache, v_cache, *([pos] if on_dev else []))
-    if cpu:
+    ins = (q, k_cache, v_cache, *([pos] if on_dev else []))
+    where = common.path(*ins)
+    if where == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, pos, window=window)
     common.refuse_grad(RING, q.device, q, k_cache, v_cache)
+    if where == "meta":
+        return _record(RING, q, k_cache.shape[1], ins, torch.empty_like(q))
     _, C, Hkv, _ = k_cache.shape
     _check_kernel_shape(hd, Hq, Hkv)
     common.check_contiguous(q=q, k_cache=k_cache, v_cache=v_cache)
@@ -139,7 +151,7 @@ def decode_attention_op(q, k_cache, v_cache, pos, *, window=0,
               common.stream_of(q))
     common.check(code, "decode_attention")
     common.LAUNCHES[RING] += 1
-    return out
+    return _record(RING, q, C, ins, out)
 
 
 def _check_paged_kernel(q, Hkv, lengths, block_tables):
@@ -161,10 +173,15 @@ def _paged_decode_op(q, k_pages, v_pages, lengths, block_tables, window):
             and block_tables.shape[0] == B, "bad lengths/block_tables")
     require(q.dtype == k_pages.dtype == v_pages.dtype,
             "q/pool dtypes differ")
-    if common.on_cpu(q, k_pages, v_pages, lengths, block_tables):
+    where = common.path(q, k_pages, v_pages, lengths, block_tables)
+    if where == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, lengths,
                                           block_tables, window=window)
     common.refuse_grad(PAGED, q.device, q, k_pages, v_pages)
+    keys = block_tables.shape[1] * ps
+    if where == "meta":
+        return _record(PAGED, q, keys, (q, k_pages, v_pages, lengths,
+                                        block_tables), torch.empty_like(q))
     _check_paged_kernel(q, Hkv, lengths, block_tables)
     common.check_contiguous(q=q, k_pages=k_pages, v_pages=v_pages,
                             lengths=lengths, block_tables=block_tables)
@@ -179,7 +196,8 @@ def _paged_decode_op(q, k_pages, v_pages, lengths, block_tables, window):
               splits, share, hd ** -0.5, common.stream_of(q))
     common.check(code, "paged_decode_attention")
     common.LAUNCHES[PAGED] += 1
-    return out
+    return _record(PAGED, q, keys, (q, k_pages, v_pages, lengths,
+                                    block_tables), out)
 
 
 def fused_decode_step_op(q, k_new, v_new, k_pages, v_pages, lengths,
@@ -200,11 +218,15 @@ def fused_decode_step_op(q, k_new, v_new, k_pages, v_pages, lengths,
             and block_tables.shape[0] == B, "bad lengths/block_tables")
     require(q.dtype == k_new.dtype == v_new.dtype == k_pages.dtype
             == v_pages.dtype, "q/k/v/pool dtypes differ")
-    if common.on_cpu(q, k_new, v_new, k_pages, v_pages, lengths,
-                     block_tables):
+    ins = (q, k_new, v_new, k_pages, v_pages, lengths, block_tables)
+    where = common.path(*ins)
+    if where == "cpu":
         return fused_paged_decode_ref(q, k_new, v_new, k_pages, v_pages,
                                       lengths, block_tables, window=window)
     common.refuse_grad(DECODE, q.device, q, k_new, v_new, k_pages, v_pages)
+    keys = block_tables.shape[1] * ps
+    if where == "meta":
+        return _record(DECODE, q, keys, ins, torch.empty_like(q))
     _check_paged_kernel(q, Hkv, lengths, block_tables)
     common.check_contiguous(q=q, k_new=k_new, v_new=v_new, k_pages=k_pages,
                             v_pages=v_pages, lengths=lengths,
@@ -223,7 +245,7 @@ def fused_decode_step_op(q, k_new, v_new, k_pages, v_pages, lengths,
               hd ** -0.5, common.stream_of(q))
     common.check(code, "fused_paged_decode_attention")
     common.LAUNCHES[DECODE] += 1
-    return out
+    return _record(DECODE, q, keys, ins, out)
 
 
 def sample_tokens_op(logits, temps, noise):
@@ -241,9 +263,15 @@ def sample_tokens_op(logits, temps, noise):
     require = common.require
     require(logits.dim() == 2 and noise.shape == logits.shape
             and temps.shape == logits.shape[:1], "bad sampler shapes")
-    if common.on_cpu(logits, temps, noise):
+    where = common.path(logits, temps, noise)
+    if where == "cpu":
         return sample_tokens_ref(logits, temps, noise)
     common.refuse_grad(SAMPLE, logits.device, logits, temps, noise)
+    if where == "meta":
+        out = torch.empty(logits.shape[:1], dtype=torch.int32,
+                          device=logits.device)
+        common.record(SAMPLE, 0, (logits, temps, noise), (out,))
+        return out
     logits = logits.float().contiguous()
     noise = noise.float().contiguous()
     temps = temps.float().contiguous()
@@ -256,4 +284,5 @@ def sample_tokens_op(logits, temps, noise):
               out.data_ptr(), B, V, ctas, share, common.stream_of(logits))
     common.check(code, "sample_tokens")
     common.LAUNCHES[SAMPLE] += 1
+    common.record(SAMPLE, 0, (logits, temps, noise), (out,))
     return out

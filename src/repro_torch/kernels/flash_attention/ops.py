@@ -41,6 +41,26 @@ def flash_attention_op(q, k, v, *, causal=True, window=0):
     return _Flash.apply(q, k, v, bool(causal), int(window))
 
 
+#: the reference's XLA attention (``repro.models.attention``): one dense
+#: score tensor up to this many keys, else chunks of this many queries
+DIRECT_MAX = 2048
+CHUNK_Q = 512
+
+
+def flops(q_shape, Sk, window=0):
+    """The dot FLOPs of one forward call as the reference's XLA form of
+    the same call counts them (``attention_core``: the dense scores and
+    p·v up to :data:`DIRECT_MAX` keys, every chunk of ``_chunked_full``
+    past it, and ``_banded_swa``'s band of keys a query chunk when
+    ``0 < window < Sk``), masked entries included."""
+    B, Sq, Hq, hd = q_shape
+    keys = Sk
+    if Sk > DIRECT_MAX and 0 < window < Sk:
+        cq = min(CHUNK_Q, Sq)
+        keys = min(Sk, (-(-window // cq) + 1) * cq)
+    return 4 * B * Hq * Sq * keys * hd
+
+
 class _Flash(torch.autograd.Function):
     """Forward: the kernel (plain version on the CPU). Backward: the
     plain formula recomputed from the saved q, k, v and differentiated
@@ -50,10 +70,15 @@ class _Flash(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        if common.on_cpu(q, k, v):
+        where = common.path(q, k, v)
+        if where == "cpu":
             return flash_attention_ref(q, k, v, causal=causal,
                                        window=window)
-        return _kernel(q, k, v, causal, window)
+        out = q.new_empty(q.shape) if where == "meta" else \
+            _kernel(q, k, v, causal, window)
+        common.record(NAME, flops(q.shape, k.shape[1], window), (q, k, v),
+                      (out,))
+        return out
 
     @staticmethod
     def backward(ctx, g):

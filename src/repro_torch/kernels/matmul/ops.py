@@ -55,12 +55,18 @@ def matmul_op(x, y):
     require(x.dim() == 2 and y.dim() == 2 and x.shape[1] == y.shape[0],
             f"bad matmul shapes {tuple(x.shape)} @ {tuple(y.shape)}")
     require(x.dtype == y.dtype, "x/y dtypes differ")
-    if common.on_cpu(x, y):
+    where = common.path(x, y)
+    if where == "cpu":
         return matmul_ref(x, y)
     common.refuse_grad(NAME, x.device, x, y)
-    common.check_contiguous(x=x, y=y)
     M, K = x.shape
     N = y.shape[1]
+    ins = (x, y)
+    if where == "meta":
+        out = x.new_empty((M, N))
+        common.record(NAME, 2 * M * K * N, ins, (out,))
+        return out
+    common.check_contiguous(x=x, y=y)
     dt = common.dtype_code(x)
     if x.dtype == torch.bfloat16:
         x, y = pad_operands(x, y)
@@ -70,4 +76,5 @@ def matmul_op(x, y):
               x.shape[1], y.shape[1], dt, common.stream_of(x))
     common.check(code, "matmul")
     common.LAUNCHES[NAME] += 1
+    common.record(NAME, 2 * M * K * N, ins, (out,))
     return out

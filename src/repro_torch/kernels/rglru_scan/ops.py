@@ -62,9 +62,12 @@ class _Scan(torch.autograd.Function):
 
 def _scan(a, b, h0):
     """The forward recurrence on the inputs' device."""
-    if common.on_cpu(a, b, h0):
+    where = common.path(a, b, h0)
+    if where == "cpu":
         return rglru_scan_ref(a, b, h0)
-    return _kernel(a, b, h0)
+    h = torch.empty_like(a) if where == "meta" else _kernel(a, b, h0)
+    common.record(NAME, 0, (a, b, h0), (h,))
+    return h
 
 
 def _kernel(a, b, h0):

@@ -10,7 +10,8 @@ initial state, the pairwise intra-chunk decays in log space (every
 exponent ≤ 0), and the current token's bonus; the state carries the
 chunk's keys decayed to its end. The terms that do not depend on the
 carried state are computed for every chunk at once, so only the carry
-(one product and one update a chunk) loops over the chunks. Inputs are
+(one multiply-add a chunk, :class:`_Carry`, whose backward runs
+the adjoint recurrence the same way) loops over the chunks. Inputs are
 in the kernel's layout, (B, H, S, K)."""
 import torch
 
@@ -46,9 +47,41 @@ def wkv_chunked(r, k, v, logw, u, s0):
     upd = torch.einsum("bhnjk,bhnjv->bhnkv",
                        k * torch.exp(L_last[:, :, :, None] - L), v)
     decay = torch.exp(L_last)[..., None]                   # (B,H,n,K,1)
-    s, reads = s0, []
-    for i in range(n):
-        reads.append(r_dec[:, :, i] @ s)
-        s = decay[:, :, i] * s + upd[:, :, i]
-    o = (o + torch.stack(reads, dim=2)).reshape(B, H, n * c, -1)
+    reads, s = _Carry.apply(r_dec, decay, upd, s0)
+    o = (o + reads).reshape(B, H, n * c, -1)
     return o[:, :, :S], s
+
+
+class _Carry(torch.autograd.Function):
+    """The carried state across chunks, ``s_{i+1} = d_i ⊙ s_i + u_i``
+    from ``s0``, and each chunk's read of the state it starts from,
+    ``r_i @ s_i``: r_dec (B,H,n,c,K), decay (B,H,n,K,1), upd (B,H,n,K,V),
+    s0 (B,H,K,V) → (reads (B,H,n,c,V), s_n). Only the recurrence loops
+    over the chunks (one multiply-add a chunk, each way); the
+    reads and every other gradient are one batched product or product
+    of all chunks at once — autograd through the loop would run seven
+    more ops a chunk."""
+
+    @staticmethod
+    def forward(ctx, r_dec, decay, upd, s0):
+        s, states = s0, []
+        for d_i, u_i in zip(decay.unbind(2), upd.unbind(2)):
+            states.append(s)
+            s = torch.addcmul(u_i, d_i, s)                 # d_i ⊙ s + u_i
+        S = torch.stack(states, dim=2)                     # each s_i
+        ctx.save_for_backward(r_dec, decay, S)
+        return r_dec @ S, s
+
+    @staticmethod
+    def backward(ctx, g_reads, g_s):
+        r_dec, decay, S = ctx.saved_tensors
+        g_r = g_reads @ S.transpose(-1, -2)
+        direct = r_dec.transpose(-1, -2) @ g_reads        # ∂reads_i/∂s_i
+        gs = torch.zeros_like(S[:, :, 0]) if g_s is None else g_s
+        g_next = []                                       # ∂/∂s_{i+1}
+        for d_i, x_i in zip(reversed(decay.unbind(2)),
+                            reversed(direct.unbind(2))):
+            g_next.append(gs)
+            gs = torch.addcmul(x_i, d_i, gs)
+        G = torch.stack(g_next[::-1], dim=2)
+        return g_r, (G * S).sum(-1, keepdim=True), G, gs

@@ -20,7 +20,7 @@ ops, a loop over the chunks for the carried state only."""
 import torch
 
 from repro_torch.kernels import common
-from repro_torch.kernels.rwkv6_wkv.chunked import wkv_chunked
+from repro_torch.kernels.rwkv6_wkv.chunked import WKV_CHUNK, wkv_chunked
 from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
 
 NAME = "rwkv6_wkv"
@@ -53,6 +53,25 @@ def rwkv6_wkv_op(r, k, v, logw, u, s0):
     return _Wkv.apply(r, k, v, logw, u, s0)
 
 
+def flops(shape):
+    """The dot FLOPs of one call as the reference's chunked scan
+    (``repro.models.recurrent._wkv_chunk_scan``, chunks of
+    ``WKV_CHUNK``, a ragged tail padded) compiles them, for r of
+    ``shape`` (B, H, S, K): a chunk's read of its initial state, its
+    intra-chunk scores (r·D·k over K for every pair: XLA fuses the
+    decay into one operand), the scores times v, the bonus and the state
+    update."""
+    B, H, S, K = shape
+    c = min(WKV_CHUNK, S)
+    n = -(-S // c)
+    per_chunk = (2 * B * c * H * K * K          # r_dec · s
+                 + 2 * B * c * c * H * K        # (r·D)·k over K
+                 + 2 * B * c * c * H * K        # scores · v
+                 + 2 * B * c * H * K            # bonus r·u·k over K
+                 + 2 * B * c * H * K * K)       # k_decᵀ · v
+    return n * per_chunk
+
+
 class _Wkv(torch.autograd.Function):
     """Forward: the kernel (plain version on the CPU), saving the inputs.
     Backward: the chunked form recomputed and differentiated."""
@@ -60,9 +79,16 @@ class _Wkv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, logw, u, s0):
         ctx.save_for_backward(r, k, v, logw, u, s0)
-        if common.on_cpu(r, k, v, logw, u, s0):
+        where = common.path(r, k, v, logw, u, s0)
+        if where == "cpu":
             return rwkv6_wkv_ref(r, k, v, logw, u, s0)
-        return _kernel(r, k, v, logw, u, s0)
+        if where == "meta":
+            o, s_fin = torch.empty_like(r), torch.empty_like(s0)
+        else:
+            o, s_fin = _kernel(r, k, v, logw, u, s0)
+        common.record(NAME, flops(r.shape), (r, k, v, logw, u, s0),
+                      (o, s_fin))
+        return o, s_fin
 
     @staticmethod
     def backward(ctx, go, gs):

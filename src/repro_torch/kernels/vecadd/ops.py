@@ -16,9 +16,14 @@ def vecadd_op(x, y):
             f"vecadd takes two equal 1-D shapes, got {tuple(x.shape)} and "
             f"{tuple(y.shape)}")
     require(x.dtype == y.dtype, "x/y dtypes differ")
-    if common.on_cpu(x, y):
+    where = common.path(x, y)
+    if where == "cpu":
         return vecadd_ref(x, y)
     common.refuse_grad(NAME, x.device, x, y)
+    if where == "meta":
+        out = torch.empty_like(x)
+        common.record(NAME, 0, (x, y), (out,))
+        return out
     common.check_contiguous(x=x, y=y)
     out = torch.empty_like(x)
     fn = common.entry(NAME, "vecadd", "ppplip")
@@ -26,4 +31,5 @@ def vecadd_op(x, y):
               common.dtype_code(x), common.stream_of(x))
     common.check(code, "vecadd")
     common.LAUNCHES[NAME] += 1
+    common.record(NAME, 0, (x, y), (out,))
     return out

@@ -34,8 +34,9 @@ prints. Checkpoints there hold the same whole leaves as the one-process
 driver's (each gathered inside the mesh, written once by rank 0), so
 either driver, and the reference's ``restore``, reads them; ``--resume``
 places each leaf back over the ``(1, world)`` mesh with the rules'
-placements. ``--virtualized`` and ``--micro-steps`` are refused there
-(:data:`MESH_REFUSED` gives why).
+placements; ``--micro-steps`` (with ``--grad-compress``) accumulates
+the reference's micro-batches, row blocks of the global batch.
+``--virtualized`` is refused there (:data:`MESH_REFUSED` gives why).
 """
 from __future__ import annotations
 
@@ -55,8 +56,6 @@ MESH_REFUSED = {
     "--virtualized": "the reference's trains a (1, 1) slice of the first "
                      "device whatever the mesh, which the one-process "
                      "driver does: run it without torchrun",
-    "--micro-steps": "gradient accumulation on a mesh is not ported yet "
-                     "(ROADMAP item 9.2)",
 }
 
 
@@ -220,8 +219,7 @@ def train_on_mesh(args, cfg, cell, opt_cfg, device):
     from repro_torch.parallel import build_train
     from repro_torch.parallel import partition as part
     refused = [flag for flag, on in (
-        ("--virtualized", args.virtualized),
-        ("--micro-steps", args.micro_steps > 1)) if on]
+        ("--virtualized", args.virtualized),) if on]
     if refused:
         raise SystemExit("; ".join(f"{flag}: not ported on a mesh ("
                                    f"{MESH_REFUSED[flag]})"

@@ -372,21 +372,28 @@ def attn_decode(cfg, p, x1, cache, pos, pvec, window=0, mesh=None):
     On a mesh whose rules split the cache's K/V heads, the rank runs
     the op on its own heads; when they split the ring's sequence, the
     split-KV path (:func:`_attn_decode_splitk`, with
-    ``cfg.sharding.decode_splitk``) runs instead."""
+    ``cfg.sharding.decode_splitk``) runs instead, or, without it, the
+    rank gathers the ring's blocks over the sequence axes and runs the
+    op over the whole ring on its own heads."""
     q, k, v = _project_qkv(cfg, p, x1)
     q, k = _rope(cfg, q, k, pvec)
     if mesh is not None:
         C = _ring_slots(cfg, mesh, window, cache["k"].shape[1])
         seq_axes = _cache_seq_axes(cfg, mesh, C)
-        if seq_axes:
-            if not cfg.sharding.decode_splitk:
-                raise NotImplementedError(
-                    f"{cfg.name}: a sequence-split decode cache without "
-                    "decode_splitk (the reference's GSPMD gathers the "
-                    "cache) is not ported")
+        if seq_axes and cfg.sharding.decode_splitk:
             o = _attn_decode_splitk(cfg, q, k, v, cache, pvec, C, window,
                                     mesh, seq_axes)
             return _out_proj_mesh(cfg, p, _local_heads(o, mesh), mesh)
+        if seq_axes:
+            # the reference's GSPMD without split-KV: the ring's blocks
+            # gathered whole, one decode over it on the rank's heads
+            _write_ring_block(cache, k, v, pvec, C, mesh, seq_axes)
+            ck, cv = (mesh.all_gather(cache[kk], seq_axes, 1)
+                      for kk in ("k", "v"))
+            ck, cv = _kv_for_local_heads(cfg, mesh, q, ck, cv)
+            o = decode_attention_op(q.contiguous(), ck.contiguous(),
+                                    cv.contiguous(), pos, window=window)
+            return _out_proj_mesh(cfg, p, o, mesh)
     C = cache["k"].shape[1]
     slot = torch.remainder(pvec, C)
     cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
@@ -422,6 +429,24 @@ def _local_heads(o, mesh):
     return mesh.block(o, 2, ("model",))
 
 
+def _write_ring_block(cache, k_new, v_new, pvec, C, mesh, seq_axes):
+    """Write the new token's K/V into a ring whose sequence the rules
+    split over ``seq_axes``: the rank owns ``C / n`` slots from ``index ·
+    C / n``, and only the owner of slot ``pos % C`` writes (in place, no
+    host sync: the others write their slot's own value back). → the
+    rank's first global slot."""
+    C_loc = cache["k"].shape[1]
+    base = mesh.index(seq_axes) * C_loc
+    slot = torch.remainder(pvec, C)                       # (1,)
+    own = (slot >= base) & (slot < base + C_loc)
+    lslot = (slot - base).clamp(0, C_loc - 1)
+    for t, new in ((cache["k"], k_new), (cache["v"], v_new)):
+        keep = t.index_select(1, lslot)
+        t.index_copy_(1, lslot, torch.where(own[:, None, None, None],
+                                            new.to(t.dtype), keep))
+    return base
+
+
 def _attn_decode_splitk(cfg, q, k_new, v_new, cache, pvec, C, window,
                         mesh, seq_axes):
     """Split-KV decode (reference ``attention.py:458-530``): each rank
@@ -442,14 +467,8 @@ def _attn_decode_splitk(cfg, q, k_new, v_new, cache, pvec, C, window,
     C_loc, Hkv = ck.shape[1], ck.shape[2]
     G = Hq // Hkv
     scale = 1.0 / math.sqrt(hd)
-    base = mesh.index(seq_axes) * C_loc
+    base = _write_ring_block(cache, k_new, v_new, pvec, C, mesh, seq_axes)
     slot = torch.remainder(pvec, C)                       # (1,)
-    own = (slot >= base) & (slot < base + C_loc)
-    lslot = (slot - base).clamp(0, C_loc - 1)
-    for t, new in ((ck, k_new), (cv, v_new)):
-        keep = t.index_select(1, lslot)
-        t.index_copy_(1, lslot, torch.where(own[:, None, None, None],
-                                            new.to(t.dtype), keep))
     qg = q.reshape(B, Hkv, G, hd)
     s = torch.einsum("bhgd,bkhd->bhgk", qg, ck).float() * scale
     gidx = base + torch.arange(C_loc, device=q.device)
@@ -556,10 +575,14 @@ def attn_prefill_chunk_paged(cfg, p, x, pools, positions, block_row,
 # ---------------------------------------------------------------------------
 
 
-def cross_kv(cfg, p, enc_out):
+def cross_kv(cfg, p, enc_out, mesh=None):
     """Cross-attention K/V of the encoder output (B, S_enc, D) →
     {"k","v"} (B, S_enc, Hkv, hd) in the compute dtype — computed once at
-    prefill and kept in the slot's rows."""
+    prefill and kept in the slot's rows. On a mesh (``mesh`` narrowed to
+    the cross attention's parameters) the rank's K/V heads, the block the
+    rules give its cross rows; the rules must split the K/V heads over
+    "model" when they split the q-heads."""
+    _check_cross_heads(cfg, mesh)
     cd = dt(cfg.compute_dtype)
     e = enc_out.to(cd)
     k = torch.einsum("bsd,dhk->bshk", e, p["wk"].to(cd))
@@ -570,6 +593,14 @@ def cross_kv(cfg, p, enc_out):
     return {"k": k, "v": v}
 
 
+def _check_cross_heads(cfg, mesh):
+    if _heads_split(mesh) and not mesh.split("wk", 1):
+        raise NotImplementedError(
+            f"{cfg.name}: cross attention whose q-heads split over "
+            "'model' and K/V heads do not (the rules would split the "
+            "cross rows' sequence) is not ported")
+
+
 def _cross_q(cfg, p, x, dtype):
     q = torch.einsum("bsd,dhk->bshk", x.to(dtype), p["wq"].to(dtype))
     if "bq" in p:
@@ -577,20 +608,24 @@ def _cross_q(cfg, p, x, dtype):
     return q
 
 
-def cross_attn_full(cfg, p, x, ckv):
+def cross_attn_full(cfg, p, x, ckv, mesh=None):
     """Every query position of x (B, S, D) over all encoder rows of
-    ``ckv`` (no mask; reference ``lm.py:196-206``) → y (B, S, D)."""
+    ``ckv`` (no mask; reference ``lm.py:196-206``) → y (B, S, D). On a
+    mesh the rank's heads, the out-projection's partial sums meeting in
+    an ``all_reduce`` over "model"."""
     q = _cross_q(cfg, p, x, ckv["k"].dtype)
     Sq, Sk = q.shape[1], ckv["k"].shape[1]
     o = attention_core(q, ckv["k"], ckv["v"], causal=False,
                        q_pos=torch.arange(Sq, device=x.device),
                        k_pos=torch.arange(Sk, device=x.device))
-    return _out_proj(cfg, p, o)
+    return _out_proj_mesh(cfg, p, o, mesh)
 
 
-def cross_attn_decode(cfg, p, x1, ckv):
+def cross_attn_decode(cfg, p, x1, ckv, mesh=None):
     """One token a slot (B, 1, D) against the slot's encoder K/V rows
-    (B, S_enc, Hkv, hd), grouped GQA as in the reference → y (B, 1, D)."""
+    (B, S_enc, Hkv, hd), grouped GQA as in the reference → y (B, 1, D);
+    on a mesh the rank's heads, as in :func:`cross_attn_full`."""
+    _check_cross_heads(cfg, mesh)
     B = x1.shape[0]
     q = _cross_q(cfg, p, x1, dt(cfg.compute_dtype))
     hd = q.shape[-1]
@@ -600,4 +635,4 @@ def cross_attn_decode(cfg, p, x1, ckv):
         / math.sqrt(hd)
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", pr.to(ckv["v"].dtype), ckv["v"])
-    return _out_proj(cfg, p, o.reshape(B, 1, -1, hd))
+    return _out_proj_mesh(cfg, p, o.reshape(B, 1, -1, hd), mesh)

@@ -374,8 +374,10 @@ def apply_layer_full(cfg, spec, p, x, positions, capacity=0, enc_out=None,
         rows["mixer"] = mrows
     if spec.cross:
         hc = apply_norm(cfg, p["norm_cross"], x)
-        ckv = attn.cross_kv(cfg, p["cross"], enc_out)
-        x = x + attn.cross_attn_full(cfg, p["cross"], hc, ckv).to(x.dtype)
+        cm = _at(mesh, "cross")
+        ckv = attn.cross_kv(cfg, p["cross"], enc_out, mesh=cm)
+        x = x + attn.cross_attn_full(cfg, p["cross"], hc, ckv,
+                                     mesh=cm).to(x.dtype)
         if make_cache:
             rows["cross"] = ckv
     h2 = apply_norm(cfg, p["norm2"], x)
@@ -412,7 +414,7 @@ def apply_layer_decode_ring(cfg, spec, p, x, cache, rows, pos, pvec,
         y, mc = step(cfg, p["mixer"], h, rows["mixer"],
                      mesh=_at(mesh, "mixer"))
         _copy_rows(rows["mixer"], mc)
-    x = _cross_decode(cfg, spec, p, x + y.to(x.dtype), rows)
+    x = _cross_decode(cfg, spec, p, x + y.to(x.dtype), rows, mesh)
     h2 = apply_norm(cfg, p["norm2"], x)
     if spec.ffn == "channelmix":
         y2, fc = rec.channelmix_decode(cfg, p["ffn"], h2, rows["ffn"],
@@ -423,14 +425,14 @@ def apply_layer_decode_ring(cfg, spec, p, x, cache, rows, pos, pvec,
     return x + y2.to(x.dtype)
 
 
-def _cross_decode(cfg, spec, p, x, rows):
+def _cross_decode(cfg, spec, p, x, rows, mesh=None):
     """The decode step's cross attention over the slots' encoder rows
-    (identity for a layer without it)."""
+    (identity for a layer without it); ``mesh`` narrowed to the layer."""
     if not spec.cross:
         return x
     hc = apply_norm(cfg, p["norm_cross"], x)
-    return x + attn.cross_attn_decode(cfg, p["cross"], hc,
-                                      rows["cross"]).to(x.dtype)
+    return x + attn.cross_attn_decode(cfg, p["cross"], hc, rows["cross"],
+                                      mesh=_at(mesh, "cross")).to(x.dtype)
 
 
 def apply_layer_decode(cfg, spec, p, x, pools, rows, positions,

@@ -86,10 +86,6 @@ class Model:
         self.cfg = cfg
         self.mesh = None
         if mesh is not None:
-            if cfg.family == "vlm" or cfg.is_encdec:
-                raise NotImplementedError(
-                    f"{cfg.name}: the VLM projector and the enc-dec "
-                    "encoder on a mesh are not ported")
             self.mesh = mesh
             if device is None:
                 device = mesh_device(mesh)
@@ -194,12 +190,16 @@ class Model:
                 return self.mesh.all_gather(tree, ("data",), d)
         return tree
 
-    def _prepare(self):
+    def _prepare(self, *keys):
         """``(i, p)`` → layer ``i``'s parameters as the layer uses them
-        (None: as they are)."""
+        (None: as they are); ``keys`` lead to the stack's layer list
+        (default the decoder's ``"layers"``)."""
         if self._fsdp is None:
             return None
-        return lambda i, p: self._fsdp_gather(p, self._fsdp["layers"][i])
+        specs = self._fsdp
+        for k in keys or ("layers",):
+            specs = specs[k]
+        return lambda i, p: self._fsdp_gather(p, specs[i])
 
     def _top(self, params, name):
         """A top-level leaf (``tok_embed``, ``lm_head``) as it is used."""
@@ -237,11 +237,18 @@ class Model:
 
     def _project_patches(self, params, patches):
         """The VLM projector: GELU (tanh form, ``jax.nn.gelu``'s
-        default) between two products."""
+        default) between two products. On a mesh the rules split the
+        hidden width (``w1``'s columns, ``w2``'s rows: both d_model, so
+        both or neither) over "model": the rank's partial products meet
+        in an ``all_reduce``."""
         cd = dt(self.cfg.compute_dtype)
         pr = params["projector"]
         h = F.gelu(patches.to(cd) @ pr["w1"].to(cd), approximate="tanh")
-        return h @ pr["w2"].to(cd)
+        y = h @ pr["w2"].to(cd)
+        if self.mesh is not None and self.mesh.at("projector").split("w2",
+                                                                     0):
+            y = self.mesh.all_reduce(y, ("model",))
+        return y
 
     def encode(self, params, frames):
         """Whisper's encoder over the stub frames (B, enc_len, d_in) →
@@ -253,12 +260,18 @@ class Model:
         x = frames.to(cd)
         if "enc_proj" in params:
             x = x @ params["enc_proj"].to(cd)
+            if self.mesh is not None and self.mesh.split("enc_proj", 1):
+                # the rules split its columns: the frames' width whole
+                x = self.mesh.all_gather(x, ("model",), 2)
         x = add_abs_positions(x)
         enc = params["encoder"]
         x, _, _ = lm.apply_stack_full(
             cfg, self.enc_specs, enc["layers"], x,
             torch.arange(x.shape[1], device=x.device), causal=False,
-            make_cache=False)
+            make_cache=False,
+            mesh=None if self.mesh is None else self.mesh.at("encoder",
+                                                             "layers"),
+            prepare=self._prepare("encoder", "layers"))
         return apply_norm(cfg, enc["final_norm"], x)
 
     def _assemble_inputs(self, params, batch):

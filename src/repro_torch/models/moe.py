@@ -126,8 +126,9 @@ def _dispatch(cfg, p, xf, C):
     order = torch.argsort(eid, stable=True)
     seid = eid[order]
     stok = order // K
-    counts = torch.bincount(eid, minlength=E)
-    starts = torch.cumsum(counts, 0) - counts
+    # each expert's first row in the sorted order (= the exclusive sum
+    # of the counts; no bincount, which has no meta kernel)
+    starts = torch.searchsorted(seid, torch.arange(E, device=dev))
     pos = torch.arange(T * K, device=dev) - starts[seid]
     keep = pos < C
     slot = seid * C + pos.clamp_max(C - 1)

@@ -33,6 +33,12 @@ from repro_torch.parallel.partition import (DATA, MODEL, _entry, _kv_rule,
 #: collective calls by kind ("all_reduce", "all_gather",
 #: "reduce_scatter", "all_to_all"), forward and backward
 COUNTS = collections.Counter()
+#: bytes of those calls' results by the same kinds (the reference's
+#: ``hlo_analysis`` counts a collective by its result shape): the
+#: gathered tensor of an all-gather, the reduced one of an all-reduce;
+#: the backward of an all-gather is an all-reduce of the whole gradient
+#: (counted "reduce_scatter", with the bytes it moves)
+BYTES = collections.Counter()
 
 
 class RankMesh:
@@ -150,7 +156,7 @@ class RankMesh:
         if op == "max":
             out = x.detach().clone()
             for a in axes:
-                _count("all_reduce")
+                _count("all_reduce", out)
                 dist.all_reduce(out, dist.ReduceOp.MAX, group=self.group(a))
             return out
         return _AllReduce.apply(x, self, tuple(axes))
@@ -172,14 +178,15 @@ class RankMesh:
         return _AllToAll.apply(x, self, axis)
 
 
-def _count(kind):
+def _count(kind, result):
     COUNTS[kind] += 1
+    BYTES[kind] += result.numel() * result.element_size()
 
 
 def _reduce(t, rm, axes):
     t = t.contiguous().clone()
     for a in axes:
-        _count("all_reduce")
+        _count("all_reduce", t)
         dist.all_reduce(t, group=rm.group(a))
     return t
 
@@ -189,10 +196,10 @@ def _gather(t, rm, axes, dim):
     t = t.contiguous()
     for a in reversed(axes):
         n = rm.sizes[a]
-        _count("all_gather")
         parts = [torch.empty_like(t) for _ in range(n)]
         dist.all_gather(parts, t, group=rm.group(a))
         t = torch.cat(parts, dim=dim)
+        _count("all_gather", t)
     return t
 
 
@@ -218,7 +225,7 @@ class _AllGather(torch.autograd.Function):
         rm, axes, dim = ctx.rm, ctx.axes, ctx.dim
         total = g.contiguous().clone()
         for a in axes:
-            _count("reduce_scatter")
+            _count("reduce_scatter", total)
             dist.all_reduce(total, group=rm.group(a))
         n = rm.size(axes)
         size = total.shape[dim] // n
@@ -229,7 +236,7 @@ class _AllGather(torch.autograd.Function):
 def _exchange(t, rm, axis):
     t = t.contiguous()
     out = torch.empty_like(t)
-    _count("all_to_all")
+    _count("all_to_all", out)
     dist.all_to_all_single(out, t, group=rm.group(axis))
     return out
 

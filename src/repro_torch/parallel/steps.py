@@ -87,9 +87,12 @@ def _meta_tree(tree, specs, mesh):
     """Meta DTensors with ``tree``'s global shapes and ``specs``'
     placements (the reference's sharded ``ShapeDtypeStruct``s)."""
     def one(t, spec):
-        local = torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
-        return part.from_local(part.local_block(local, spec, mesh), spec,
-                               mesh, tuple(t.shape))
+        full = torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
+        block = part.local_block(full, spec, mesh)
+        # a storage of the block's own size, as a rank holds it
+        local = torch.empty(tuple(block.shape), dtype=t.dtype,
+                            device="meta")
+        return part.from_local(local, spec, mesh, tuple(t.shape))
     return part.map_specs(one, tree, specs)
 
 
@@ -221,28 +224,41 @@ def _global_norm(rm, grads, specs):
     return torch.sqrt(total)
 
 
+def _micro_batches(rm, batch, n, b_specs):
+    """The reference's micro-batches on a rank: micro-batch ``i`` is row
+    block ``i`` of the *global* batch (``optim/adamw.py:108-125``), of
+    which the rank takes its share under the batch axes (``rm`` is built
+    for one micro-batch's rows). With the rows split (``b_specs``), a
+    rank's own rows hold other blocks, so the batch's rows are first
+    gathered over the batch axes (token ids, labels and masks are small;
+    a frontend's frames are gathered whole too)."""
+    full = {k: rm.all_gather(x, part.spec_axes(b_specs[k][0]), 0)
+            for k, x in batch.items()}
+    axes = rm.batch_spec_axes()
+    for i in range(n):
+        yield {k: rm.block(x.reshape((n, x.shape[0] // n) + x.shape[1:])[i],
+                           0, axes) for k, x in full.items()}
+
+
 def _mesh_train(cfg, mesh, cell, opt_cfg):
-    if opt_cfg.micro_steps > 1:
-        raise NotImplementedError(
-            "gradient accumulation (micro_steps > 1) on a mesh is not "
-            "ported: the reference's micro-batches are row blocks of the "
-            "global batch, which the batch axes split otherwise")
     B = cell.global_batch
+    n = opt_cfg.micro_steps
+    if B % n:
+        raise ValueError(f"micro_steps={n} does not divide the global "
+                         f"batch {B}")
     meta = Model(cfg, device="meta")
     params_abs = abstract_params(meta)
     opt_abs = optim.init(opt_cfg, params_abs)
     batch_abs = meta.input_specs(cell)
-    model, p_specs = _rank_model(cfg, mesh, params_abs, B)
+    # the model runs one micro-batch (B / n global rows) at a time
+    model, p_specs = _rank_model(cfg, mesh, params_abs, B // n)
     rm = model.mesh
     o_specs = part.opt_specs(cfg, p_specs)
     b_specs = part.batch_specs(cfg, batch_abs, mesh)
+    gdt = torch.bfloat16 if opt_cfg.grad_compress else torch.float32
 
-    def train_step(params, opt_state, batch):
-        lp = _local(params, p_specs, mesh, "train params")
-        opt_local = _local(opt_state, o_specs, mesh, "optimizer state")
-        batch_local = _local(batch, b_specs, mesh, "train batch")
-        live = optim.adamw.tree_map(lambda p: p.detach().requires_grad_(),
-                                    lp)
+    def grads_of(live, batch_local):
+        """→ (loss, metrics, the gradient summed over the mesh)."""
         with torch.enable_grad():
             loss, metrics = model.loss(live, batch_local)
             flat = optim.adamw.leaves(live)
@@ -252,11 +268,33 @@ def _mesh_train(cfg, mesh, cell, opt_cfg):
         grads = unflatten(live, {path: g for (path, _), g in
                                  zip(flatten_with_path(live), gl)})
         with torch.no_grad():
-            grads = _reduce_grads(rm, grads, p_specs)
+            return loss.detach(), metrics, _reduce_grads(rm, grads, p_specs)
+
+    def train_step(params, opt_state, batch):
+        lp = _local(params, p_specs, mesh, "train params")
+        opt_local = _local(opt_state, o_specs, mesh, "optimizer state")
+        batch_local = _local(batch, b_specs, mesh, "train batch")
+        live = optim.adamw.tree_map(lambda p: p.detach().requires_grad_(),
+                                    lp)
+        if n == 1:
+            loss, metrics, grads = grads_of(live, batch_local)
+        else:
+            # the reference's accumulation: each micro-step's (whole)
+            # gradient cast to gdt and summed, then / n in fp32
+            grads, loss, metrics = None, 0.0, {}
+            for mb in _micro_batches(rm, batch_local, n, b_specs):
+                mloss, _, g = grads_of(live, mb)
+                g = optim.adamw.tree_map(lambda t: t.to(gdt), g)
+                grads = g if grads is None else optim.adamw.tree_map(
+                    torch.add, grads, g)
+                loss = loss + mloss
+            grads = optim.adamw.tree_map(lambda g: g.float() / n, grads)
+            loss = loss / n
+        with torch.no_grad():
             gnorm = _global_norm(rm, grads, p_specs)
             new_p, new_s, om = optim.update(opt_cfg, grads, opt_local, lp,
                                             grad_norm=gnorm)
-        out = {"loss": loss.detach(), **om}
+        out = {"loss": loss, **om}
         out.update({k: v.detach() for k, v in metrics.items()
                     if k != "n_tok"})
         return (_wrap(new_p, p_specs, params_abs, mesh),
@@ -314,8 +352,9 @@ def build_train(cfg, device, cell, opt_cfg=None):
     (the reference donates them). ``opt_cfg`` defaults to
     ``OptConfig(state_dtype=cfg.opt_dtype)``. On a mesh the step sums
     each gradient leaf over the axes its parameter is replicated on and
-    clips by the norm of the whole tree; gradient accumulation there is
-    not ported."""
+    clips by the norm of the whole tree; with ``micro_steps`` n > 1 each
+    micro-batch is a row block of the global batch, as in the
+    reference."""
     if opt_cfg is None:
         opt_cfg = optim.OptConfig(state_dtype=cfg.opt_dtype)
     if _is_mesh(device):

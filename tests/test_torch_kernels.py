@@ -315,11 +315,13 @@ def test_app_wrappers_check_shapes():
 
 
 def test_wrappers_reject_mixed_devices():
-    """A wrapper never picks a path by itself: tensors on a device with
-    no kernel, or on several devices, raise."""
+    """A wrapper never picks a path by itself: tensors on several
+    devices raise. (Meta tensors alone take the meta path, and a device
+    with no kernel raises: ``tests/test_torch_op_analysis.py``.)"""
     x = torch.zeros((1, 4, 2, 16), device="meta")
+    y = torch.zeros((1, 4, 2, 16))
     with pytest.raises(ValueError):
-        flash_attention_op(x, x, x)
+        flash_attention_op(x, y, y)
     lg = torch.zeros((2, 8))
     with pytest.raises(ValueError):
         sample_tokens_op(lg, torch.zeros((2,), device="meta"), lg)

@@ -2,8 +2,8 @@
 ``(1, world)`` mesh, the mesh step builder, the same pipeline batches;
 its losses against the one-process driver's (reduced qwen, bf16 compute:
 the model axis sums partial products rounded to bf16, so within 1e-3
-relative), and the flags it refuses on a mesh (``--micro-steps`` and
-``--virtualized``). Its checkpoints, ``--resume`` and ``--fail-at``:
+relative), with ``--micro-steps`` too, and the flag it refuses on a mesh
+(``--virtualized``). Its checkpoints, ``--resume`` and ``--fail-at``:
 ``tests/test_torch_vslice_train_driver.py``."""
 import os
 import re
@@ -39,10 +39,21 @@ def test_torchrun_losses_follow_the_one_process_driver(tmp_path):
         assert loss == pytest.approx(want[step], rel=1e-3), (step, loss)
 
 
-def test_torchrun_refuses_what_is_not_ported_on_a_mesh():
-    p = torchrun("--micro-steps", "2")
-    assert p.returncode != 0
-    assert "--micro-steps: not ported on a mesh" in p.stdout + p.stderr
+def test_torchrun_refuses_what_is_not_ported_on_a_mesh(tmp_path):
+    """``--micro-steps`` is ported on a mesh (the reference's
+    micro-batches, row blocks of the global batch): the accumulated run,
+    bf16-compressed, follows the one-process driver's."""
+    from repro_torch.launch import train
+    flags = ["--micro-steps", "2", "--grad-compress"]
+    want = train.main(ARGS + flags + ["--ckpt-dir", str(tmp_path / "ck")])
+    p = torchrun(*flags)
+    assert p.returncode == 0, p.stdout + p.stderr[-3000:]
+    assert "not ported on a mesh" not in p.stdout + p.stderr
+    got = {int(s): float(v) for s, v in
+           re.findall(r"step=\s*(\d+) loss=\s*([\d.]+)", p.stdout)}
+    assert set(got) == {0, 5}, p.stdout
+    for step, loss in got.items():
+        assert loss == pytest.approx(want[step], rel=1e-3), (step, loss)
 
 
 def test_torchrun_refuses_checkpoints_on_a_mesh():
