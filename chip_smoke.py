@@ -2393,6 +2393,41 @@ RECURRENCE_KERNELS = {"recurrentgemma": ("rglru_scan", "rglru_scan_kernel"),
                       "rwkv6": ("rwkv6_wkv", "wkv_chunk_kernel")}
 
 
+#: the bytes a prefill program's outputs may hold beyond the reckoning of
+#: their own size (the allocator's rounding)
+STATE_SLACK = 0.10
+
+
+def state_bytes(cfg, B, C):
+    """The reckoning of what a prefill program at batch ``B`` into rings
+    of ``C`` slots returns, from the config: the caches the decode
+    program takes (``init_cache``'s shapes and dtypes on meta: rings and
+    recurrent rows)."""
+    from repro_torch.checkpointing.checkpoint import flatten_with_path
+    from repro_torch.models import Model
+    caches = Model(cfg, device="meta").init_cache(B, C)
+    return sum(t.numel() * t.element_size()
+               for _, t in flatten_with_path(caches))
+
+
+def check_state_bytes(path, cfg, logits, held, B, S):
+    """The device bytes a prefill program's outputs hold once its
+    activations are gone (``held``: ``memory_allocated`` after the run
+    less before it) against the reckoning of the caches' own size plus
+    the logits; fails beyond ``STATE_SLACK``. A state row that is a view
+    of its layer's (B, S, d) activation keeps that whole activation."""
+    want = state_bytes(cfg, B, S) + logits.numel() * logits.element_size()
+    ratio = held / want
+    ok = ratio <= 1 + STATE_SLACK
+    log(f"[{path}] state memory after the prefill program (B={B} S={S}): "
+        f"{held / 2**20:.1f} MiB held by its outputs, reckoned "
+        f"{want / 2**20:.1f} MiB (caches' own size + logits): ratio "
+        f"{ratio:.4f} (limit {1 + STATE_SLACK:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{path}: the caches hold {held} B, beyond "
+                             f"their own {want} B")
+
+
 def recurrent_programs_phase(device, launches, weights, arch, short, depth,
                              S=4096, B=4, n_decode=32, n_cut_decode=6):
     """A recurrent family's VMM programs at full width and depth through
@@ -2401,7 +2436,9 @@ def recurrent_programs_phase(device, launches, weights, arch, short, depth,
     program for ``n_decode`` greedy steps at pos S… (the rings wrap). The
     ids must equal native ``Model.prefill``/``decode`` on the same
     weights in this call; the recurrence kernel's device time at B is
-    read from a trace of the program's prefill. Then the programs at a
+    read from a trace of the program's prefill, and the device bytes its
+    outputs hold are held to the reckoning of their own size
+    (:func:`check_state_bytes`). Then the programs at a
     cut depth (``depth`` layers, fp32 compute, B=1): the prefill at S=130
     and ``n_cut_decode`` decode steps past the rings' end, their logits
     on the card against the CPU plain path (tol 1e-3)."""
@@ -2431,12 +2468,15 @@ def recurrent_programs_phase(device, launches, weights, arch, short, depth,
         dev.run(params, {"tokens": tokens[:, :64]})          # warm-up
         sync(device)
         common.reset_launches()
+        before = torch.cuda.memory_allocated(device)
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             logits, caches = dev.run(params, {"tokens": tokens})
             sync(device)
         t_prefill = time.perf_counter() - t0
+        check_state_bytes(path, cfg, logits, torch.cuda.memory_allocated(
+            device) - before, B, S)
         counts = dict(common.LAUNCHES)
         kname, cuda_name = RECURRENCE_KERNELS[short]
         # a trace may lose events: the mean is over the recorded ones
@@ -3339,9 +3379,9 @@ def train_reference_phase(device, cfg=None, B=TRAIN_REF_B, S=TRAIN_REF_S,
 
 def run_steps(run, trees, batches, first, device, mgr=None):
     """Train steps ``first..`` over ``batches`` (numpy) from ``trees``
-    ([params, opt_state], emptied here: a step returns new trees, and the
-    caller's references would keep a third copy alive beside a step's
-    inputs and outputs) → (params, state, losses, host ms a step, each
+    ([params, opt_state], emptied here: a step consumes its inputs, and
+    a functional step's old trees would stay alive through the caller's
+    references) → (params, state, losses, host ms a step, each
     step's kernel launches, grad norms); ``mgr`` saves after step
     RESUME_AT (its host copy is not in the step's time)."""
     from repro_torch.bridge import batch_from_numpy
@@ -3421,17 +3461,18 @@ def _agree(name, what, got, want):
 
 #: the families trained on the card: (arch, path name, layers kept (None:
 #: all), experts kept (None: all), B, S, steps). Full width; depth and
-#: experts cut only as far as one card's 80 GB forces. A step holds the
-#: parameters, their gradients, and the parameters and AdamW's m and v
-#: both before and after the update (the step returns new trees while its
-#: caller holds the old ones): 3p + 4s bytes a parameter (p, s: the bytes
-#: of the parameter and the state dtype; 28 in fp32, 14 for kimi's bf16),
-#: the update's fp32 temporaries kept to a block of rows
-#: (``optim.adamw.UPDATE_BLOCK``); B·S = 2048 tokens (whisper: 4 × 512
-#: over 4 × 1500 frames) keeps the logits' share (V up to 256000) to a
-#: few GB. ``train_bytes`` prints the reckoning beside the measured peak;
-#: the cuts keep it at or below ~65 GB (mixtral: 2 layers would be 88).
-#: qwen keeps its full depth and 12 steps of B=4.
+#: experts cut only as far as one card's 80 GB forces. The cuts were made
+#: for a step that returned new trees while its caller held the old
+#: ones: 3p + 4s bytes a parameter at the update (p, s: the bytes of the
+#: parameter and the state dtype; 28 in fp32, 14 for kimi's bf16), kept
+#: at or below ~65 GB (mixtral: 2 layers would have been 88). The step
+#: ``build_train`` makes now consumes its inputs (the update in place, as
+#: the reference donates them): 2p + 2s (parameters, their gradients, m
+#: and v; 16 in fp32), the update's fp32 temporaries kept to a block of
+#: rows (``optim.adamw.UPDATE_BLOCK``); ``train_bytes`` prints both
+#: reckonings beside the measured peak. B·S = 2048 tokens (whisper: 4 ×
+#: 512 over 4 × 1500 frames) keeps the logits' share (V up to 256000) to
+#: a few GB. qwen keeps its full depth and 12 steps of B=4.
 TRAIN_FAMILIES = (
     (TRAIN_ARCH, "train", None, None, TRAIN_B, TRAIN_S, TRAIN_STEPS),
     ("recurrentgemma-2b", "train-recurrentgemma", 12, None, 1, 2048, 4),
@@ -3465,13 +3506,16 @@ for _arch, _path, *_ in TRAIN_FAMILIES:
 
 
 def train_bytes(cfg):
-    """(parameters, the bytes a train step holds at its peak without
-    activations: 3p + 4s a parameter, see ``TRAIN_FAMILIES``)."""
+    """(parameters, the bytes a train step holds at the update without
+    activations in the donated form — 2p + 2s a parameter: parameters,
+    gradients, m and v, updated in place — and in the functional form,
+    3p + 4s: new parameters, m and v beside the old; see
+    ``TRAIN_FAMILIES``)."""
     import torch
     n = cfg.param_counts()["total"]
     p = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
     s = torch.finfo(getattr(torch, cfg.opt_dtype)).bits // 8
-    return n, n * (3 * p + 4 * s)
+    return n, n * (2 * p + 2 * s), n * (3 * p + 4 * s)
 
 
 def train_launches(cfg):
@@ -3529,7 +3573,7 @@ def family_train(device, launches, smi, arch, path, depth, n_experts, B, S,
     cell = ShapeCell("train", S, B, "train")
     pipe = pipeline_for(cfg, cell, seed=0)
     batches = [pipe.batch(i) for i in range(steps)]
-    n_params, held = train_bytes(cfg)
+    n_params, held, functional = train_bytes(cfg)
     cut = (f"{cfg.n_layers} of {full.n_layers} layers"
            + (f", {cfg.moe.n_experts} of {full.moe.n_experts} experts "
               f"top-{cfg.moe.top_k}" if n_experts else ""))
@@ -3585,12 +3629,16 @@ def family_train(device, launches, smi, arch, path, depth, n_experts, B, S,
         f"remat {cfg.sharding.remat!r}, params {cfg.param_dtype}, compute "
         f"{cfg.compute_dtype}; B={B} S={S}, {steps} steps: "
         f"{n_params / 1e9:.3f} B parameters, reckoned {held / 1e9:.1f} GB "
-        f"held at the update without activations; every leaf a finite "
+        f"held at the update without activations, donated (the "
+        f"functional form's 3p + 4s: {functional / 1e9:.1f} GB); every "
+        f"leaf a finite "
         f"nonzero gradient; losses {[round(x, 4) for x in losses]}, grad "
         f"norms {[round(x, 3) for x in norms]}; launches a step {got[0]} "
         f"(expected {want}); launches over the steps {counts}")
     log(f"[time:{path}] {smi}: step p50 {p50:.1f} ms, "
-        f"{B * S / p50 * 1e3:.0f} tokens/s, peak memory {peak:.2f} GB; each "
+        f"{B * S / p50 * 1e3:.0f} tokens/s, peak memory {peak:.2f} GB "
+        f"beside the donated form's {held / 1e9:.2f} GB without "
+        f"activations (functional {functional / 1e9:.2f} GB); each "
         f"step's ms {[round(t, 1) for t in ms]}"
         + (f" (the async save after step {RESUME_AT} writes on a host "
            "thread meanwhile)" if mgr else ""))
@@ -3614,7 +3662,7 @@ def family_train(device, launches, smi, arch, path, depth, n_experts, B, S,
     count_path(path, counts, launches)
     out = {"arch": arch, "cut": cut, "B": B, "S": S, "step_p50_ms": p50,
            "tokens_s": B * S / p50 * 1e3, "peak_gb": peak,
-           "reckoned_gb": held / 1e9}
+           "reckoned_gb": held / 1e9, "functional_gb": functional / 1e9}
     if "profile" in extras:
         node, what = extras["profile"]
         out["bwd_share"], out["events"] = profile_train_step(
@@ -4980,7 +5028,9 @@ def main():
         log(f"[time:train] {smi}: {r['arch']} ({r['cut']}, B={r['B']} "
             f"S={r['S']}): step p50 {r['step_p50_ms']:.1f} ms, "
             f"{r['tokens_s']:.0f} tokens/s, peak {r['peak_gb']:.2f} GB "
-            f"(reckoned {r['reckoned_gb']:.1f} GB without activations)"
+            f"(reckoned without activations: donated "
+            f"{r['reckoned_gb']:.2f} GB, functional "
+            f"{r['functional_gb']:.2f} GB)"
             + (f"; through the VMM {r['virt_step_p50_ms']:.1f} ms (ratio "
                f"{r['virt_step_p50_ms'] / r['step_p50_ms']:.4f})"
                if "virt_step_p50_ms" in r else "")

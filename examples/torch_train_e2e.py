@@ -65,7 +65,8 @@ def main(argv=None):
             first = saved + 1
             print(f"resumed from step {saved}")
 
-    step_fn = optim.make_train_step(model, oc)
+    # the step consumes params and opt_state (updated in place)
+    step_fn = optim.make_train_step(model, oc, donate=True)
     it = pipe.prefetch(start_step=first, depth=2)
     t0 = time.perf_counter()
     tokens, losses = 0, []

@@ -29,8 +29,9 @@ SXM (data sheet); ``HBM_BW`` 3.35e12 B/s — its HBM3 (data sheet);
 ``LINK_BW`` 450e9 B/s — NVLink 4, one direction (data sheet: 900 GB/s
 both ways); ``HBM_BYTES`` — ``torch.cuda.get_device_properties(0)
 .total_memory`` of the card (``chip_smoke.py`` prints it). The HBM term
-reads ``mem_bytes``, unfused eager traffic (see ``op_analysis``): an
-upper bound, not the post-fusion model the reference's term reads.
+reads ``mem_bytes``, unfused eager traffic (see ``op_analysis``): not
+the post-fusion model the reference's term reads, and below the
+reference's count in all but one production cell, so no bound of it.
 
 Run: ``PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch
 qwen1.5-0.5b,rwkv6-7b] [--shape train_4k] [--mesh single|multi|both]``;

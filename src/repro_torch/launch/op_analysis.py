@@ -18,8 +18,10 @@ on the card) and counts what it dispatches:
   allocations (``empty``) excluded, plus the kernels' bytes. This is
   *unfused eager traffic*: every intermediate of an elementwise chain is
   written and read back, where XLA's post-fusion model counts a fused
-  chain once. It is an upper bound beside the reference's ``mem_bytes``,
-  not the same quantity;
+  chain once. It is not the reference's ``mem_bytes`` and no bound of
+  it: at the production meshes it is 0.05–0.70 of the reference's HLO
+  count in every 16×16 cell but one (rwkv6 ``long_500k``, 3.54;
+  ``tests/test_torch_dryrun_account.py``);
 * **collective bytes and counts** by the reference's kinds
   (``hlo_analysis.COLLECTIVE_KINDS``), from ``parallel.rank_mesh``'s ``COUNTS`` and
   ``BYTES`` (a collective's result bytes, as the reference counts them).

@@ -293,9 +293,18 @@ def attn_full(cfg, p, x, positions, cache_capacity=0, window=0,
                  "v": torch.roll(v[:, S - C:], shift, dims=1)}
     if mesh is not None:
         seq_axes = _cache_seq_axes(cfg, mesh, C)
-        cache = {kk: mesh.block(t, 1, seq_axes).contiguous()
+        cache = {kk: _own_block(mesh, t, seq_axes)
                  for kk, t in cache.items()}
     return y, cache
+
+
+def _own_block(mesh, t, axes):
+    """The rank's block of the ring ``t`` along its sequence over
+    ``axes``, in storage of its own: a narrowed view (contiguous at B=1)
+    would keep every rank's slots alive for as long as the cache lives."""
+    block = mesh.block(t, 1, axes)
+    return t if block is t else block.clone(
+        memory_format=torch.contiguous_format)
 
 
 # ---------------------------------------------------------------------------

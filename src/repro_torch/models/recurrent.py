@@ -156,7 +156,9 @@ def rglru_full(cfg, p, x, h0=None, conv0=None, make_cache=False,
             conv = xb[:, S - (RG_CONV_WIDTH - 1):]
         else:
             conv = F.pad(xb, (0, 0, RG_CONV_WIDTH - 1 - S, 0))
-        cache = {"h": h[:, -1], "conv": conv.to(cd)}
+        # copies: a view would keep the whole (B, S, d) scan output and
+        # projection alive for as long as the caches live
+        cache = {"h": h[:, -1].clone(), "conv": conv.to(cd).clone()}
     return y, cache
 
 
@@ -285,6 +287,14 @@ def _rwkv_proj(cfg, p, x, x_prev, mesh=None):
         g, logw.reshape(B, S, -1, dk))
 
 
+def _last_row(x, split, mesh):
+    """The shift state after ``x`` (B,S,d): its last row (the rank's block
+    of it on a mesh that splits d), copied when S > 1 — a view would keep
+    the whole activation alive for as long as the caches live."""
+    row = mesh.block(x[:, -1], 1, ("model",)) if split else x[:, -1]
+    return row.clone() if x.shape[1] > 1 else row
+
+
 def rwkv_tmix_full(cfg, p, x, cache=None, make_cache=False, mesh=None):
     """Full-sequence RWKV6 time-mix. cache {"shift": (B,d), "s":
     (B,H,K,K) fp32}. On a mesh that splits the channels the rank runs
@@ -314,8 +324,7 @@ def rwkv_tmix_full(cfg, p, x, cache=None, make_cache=False, mesh=None):
     y = _row_reduce((o * F.silu(g)) @ p["w_o"].to(cd), mesh)
     new_cache = None
     if make_cache:
-        shift = mesh.block(x[:, -1], 1, ("model",)) if split else x[:, -1]
-        new_cache = {"shift": shift, "s": s_fin}
+        new_cache = {"shift": _last_row(x, split, mesh), "s": s_fin}
     return y, new_cache
 
 
@@ -382,8 +391,7 @@ def channelmix_full(cfg, p, x, cache=None, make_cache=False, mesh=None):
         y = mesh.all_gather(y, ("model",), 2)
     if not make_cache:
         return y, None
-    shift = mesh.block(x[:, -1], 1, ("model",)) if split else x[:, -1]
-    return y, {"shift": shift}
+    return y, {"shift": _last_row(x, split, mesh)}
 
 
 def channelmix_decode(cfg, p, x1, cache, mesh=None):

@@ -97,59 +97,85 @@ def _row_blocks(p):
     return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
 
 
-@torch.no_grad()
-def update(opt: OptConfig, grads, state, params, grad_norm=None):
-    """One AdamW step → (new_params, new_state, {"lr", "grad_norm"});
-    the inputs are not modified. ``grad_norm`` is the gradients' global
-    norm when the caller has it (a rank of a mesh holds only blocks of
-    the tree)."""
-    step = state["step"] + 1
+def _coefficients(opt: OptConfig, step, grads, grad_norm):
+    """(lr, grad norm, clip scale, the two bias corrections) of the step
+    numbered ``step`` (a 0-d tensor)."""
     lr = schedule(opt, step)
     gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(opt.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
-    b1, b2 = opt.beta1, opt.beta2
     stepf = step.float()
-    bc1 = 1.0 - b1 ** stepf
-    bc2 = 1.0 - b2 ** stepf
-    sdt = getattr(torch, opt.state_dtype)
+    return lr, gnorm, scale, 1.0 - opt.beta1 ** stepf, \
+        1.0 - opt.beta2 ** stepf
 
-    def one(g, m, v, p, decay):
-        # m = b1·m + (1 - b1)·g, v = b2·v + (1 - b2)·g², upd = m̂ / (√v̂ +
-        # eps) (+ wd·p), p - lr·upd: the same operations in the same
-        # order, each into a buffer the update owns (fewer allocations)
-        g32 = g.float() * scale
-        m32 = m.float() * b1
-        m32.add_(g32 * (1 - b1))
-        v32 = v.float() * b2
-        v32.add_(g32.square_().mul_(1 - b2))
-        upd = torch.div(m32, bc1).div_(torch.div(v32, bc2).sqrt_()
-                                        .add_(opt.eps))
-        if decay:
-            upd.add_(p.float() * opt.weight_decay)
-        return (torch.sub(p.float(), upd.mul_(lr)).to(p.dtype),
-                m32.to(sdt), v32.to(sdt))
 
-    new_p, new_m, new_v = {}, {}, {}
+def _adamw(opt: OptConfig, coef, g, m32, v32, p, decay):
+    """One leaf (or row block of one): ``m32``/``v32`` hold b1·m and b2·v
+    in fp32 and become the new moments in place → the new parameter in
+    fp32. m = b1·m + (1 - b1)·g, v = b2·v + (1 - b2)·g², upd = m̂ / (√v̂ +
+    eps) (+ wd·p), p - lr·upd: the same operations in the same order,
+    each into a buffer the update owns (fewer allocations)."""
+    lr, _, scale, bc1, bc2 = coef
+    g32 = g.float() * scale
+    m32.add_(g32 * (1 - opt.beta1))
+    v32.add_(g32.square_().mul_(1 - opt.beta2))
+    upd = torch.div(m32, bc1).div_(torch.div(v32, bc2).sqrt_()
+                                    .add_(opt.eps))
+    if decay:
+        upd.add_(p.float() * opt.weight_decay)
+    return torch.sub(p.float(), upd.mul_(lr))
+
+
+def _leaves_to_update(opt: OptConfig, grads, state, params):
+    """(path, g, m, v, p, decay) of every leaf."""
     for (path, g), m, v, p in zip(flatten_with_path(grads),
                                   leaves(state["m"]), leaves(state["v"]),
                                   leaves(params)):
-        decay = bool(opt.weight_decay) and _decay_mask(path)
+        yield path, g, m, v, p, bool(opt.weight_decay) and _decay_mask(path)
+
+
+@torch.no_grad()
+def update(opt: OptConfig, grads, state, params, grad_norm=None):
+    """One AdamW step → (new_params, new_state, {"lr", "grad_norm"});
+    the inputs are not modified: :func:`update_` on copies of ``state``
+    and ``params``. ``grad_norm`` is the gradients' global norm when the
+    caller has it (a rank of a mesh holds only blocks of the tree)."""
+    return update_(opt, grads, tree_map(torch.clone, state),
+                   tree_map(torch.clone, params), grad_norm)
+
+
+@torch.no_grad()
+def update_(opt: OptConfig, grads, state, params, grad_norm=None):
+    """One AdamW step in place → (params, state, {"lr", "grad_norm"}), the
+    very trees it was given: every parameter, ``m``, ``v`` and ``step`` is
+    overwritten with its new value, a leaf over ``UPDATE_BLOCK`` row block
+    by row block. The reference's train step donates its params and state
+    so; a caller that still needs the old values clones them first
+    (:func:`update` does)."""
+    state["step"].add_(1)
+    coef = _coefficients(opt, state["step"], grads, grad_norm)
+
+    def one(g, m, v, p, decay):
+        # an fp32 m/v is its own buffer; a bf16 one is copied back (the
+        # same rounding as ``.to``)
+        m32 = m.mul_(opt.beta1) if m.dtype == torch.float32 \
+            else m.float() * opt.beta1
+        v32 = v.mul_(opt.beta2) if v.dtype == torch.float32 \
+            else v.float() * opt.beta2
+        p.copy_(_adamw(opt, coef, g, m32, v32, p, decay))
+        for leaf, buf in ((m, m32), (v, v32)):
+            if leaf is not buf:
+                leaf.copy_(buf)
+
+    for _, g, m, v, p, decay in _leaves_to_update(opt, grads, state,
+                                                  params):
         blocks = _row_blocks(p)
         if blocks is None:
-            new_p[path], new_m[path], new_v[path] = one(g, m, v, p, decay)
+            one(g, m, v, p, decay)
             continue
-        outs = (torch.empty_like(p), torch.empty_like(m, dtype=sdt),
-                torch.empty_like(v, dtype=sdt))
         for rows in blocks:
-            for out, block in zip(outs, one(g[rows], m[rows], v[rows],
-                                            p[rows], decay)):
-                out[rows] = block
-        new_p[path], new_m[path], new_v[path] = outs
-    out_params = unflatten(params, new_p)
-    new_state = {"m": unflatten(params, new_m),
-                 "v": unflatten(params, new_v), "step": step}
-    return out_params, new_state, {"lr": lr, "grad_norm": gnorm}
+            one(g[rows], m[rows], v[rows], p[rows], decay)
+    return params, state, {"lr": coef[0], "grad_norm": coef[1]}
 
 
 def loss_and_grads(model, params, batch):
@@ -168,12 +194,17 @@ def loss_and_grads(model, params, batch):
             unflatten(live, by_path))
 
 
-def make_train_step(model, opt: OptConfig):
+def make_train_step(model, opt: OptConfig, donate=False):
     """→ ``train_step(params, opt_state, batch) → (params, opt_state,
     metrics)``, as the reference builds it: with ``micro_steps`` n > 1
     the batch is split into n contiguous row blocks and the gradients are
     summed in fp32 (bf16 with ``grad_compress``, each micro-step's
-    gradient cast before it is added), then divided by n."""
+    gradient cast before it is added), then divided by n. With
+    ``donate`` the step updates ``params`` and ``opt_state`` in place
+    (:func:`update_`) and returns them, as the reference's jit with
+    ``donate_argnums=(0, 1)``; else it returns new trees
+    (:func:`update`) and leaves its inputs as they were."""
+    apply = update_ if donate else update
 
     def train_step(params, opt_state, batch):
         if opt.micro_steps <= 1:
@@ -194,7 +225,7 @@ def make_train_step(model, opt: OptConfig):
             grads = tree_map(lambda g: g.float() / n, grads)
             loss = loss / n
             metrics = {}
-        new_params, new_state, om = update(opt, grads, opt_state, params)
+        new_params, new_state, om = apply(opt, grads, opt_state, params)
         out = {"loss": loss, **om}
         out.update({k: v for k, v in metrics.items() if k != "n_tok"})
         return new_params, new_state, out

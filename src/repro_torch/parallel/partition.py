@@ -364,7 +364,10 @@ def distribute(tree, specs, mesh, device=None):
     """Full tensors (the same on every rank) → DTensors under ``specs``:
     each rank keeps only its own block, copied when it is a part (a
     sharded leaf holds no reference to the full tensor; a whole one is
-    the tensor itself), on ``device`` (the tensors' own by default)."""
+    the tensor itself), on ``device`` (the tensors' own by default).
+    A whole leaf shares the caller's storage: a step that writes in place
+    (``build_train``'s) writes into the caller's tensor too, so a caller
+    that reads its tree again distributes a copy of it."""
     def one(t, spec):
         local = local_block(t, spec, mesh)
         if local.numel() < t.numel() or device is not None:

@@ -292,13 +292,14 @@ def _mesh_train(cfg, mesh, cell, opt_cfg):
             loss = loss / n
         with torch.no_grad():
             gnorm = _global_norm(rm, grads, p_specs)
-            new_p, new_s, om = optim.update(opt_cfg, grads, opt_local, lp,
-                                            grad_norm=gnorm)
+            # the local blocks are the DTensors' own storage: the update
+            # lands in ``params`` and ``opt_state`` in place
+            _, _, om = optim.update_(opt_cfg, grads, opt_local, lp,
+                                     grad_norm=gnorm)
         out = {"loss": loss, **om}
         out.update({k: v.detach() for k, v in metrics.items()
                     if k != "n_tok"})
-        return (_wrap(new_p, p_specs, params_abs, mesh),
-                _wrap(new_s, o_specs, opt_abs, mesh), out)
+        return params, opt_state, out
     train_step.specs = (p_specs, o_specs, b_specs)
     return train_step, (_meta_tree(params_abs, p_specs, mesh),
                         _meta_tree(opt_abs, o_specs, mesh),
@@ -348,8 +349,16 @@ def build_decode(cfg, device, cell):
 def build_train(cfg, device, cell, opt_cfg=None):
     """→ (train_step, abstract_args). train_step(params, opt_state,
     batch) → (params, opt_state, metrics) is ``optim.make_train_step``
-    over ``Model(cfg, device).loss``: new trees, the inputs untouched
-    (the reference donates them). ``opt_cfg`` defaults to
+    over ``Model(cfg, device).loss`` with ``donate``: it consumes its
+    inputs, as the reference's (``donate_argnums=(0, 1)``) does — the
+    AdamW update (``optim.update_``) lands in ``params`` and
+    ``opt_state`` in place, and those very trees come back; a caller
+    that needs the old values clones them first. Where the reference
+    invalidates a donated buffer, so that reuse raises, here reuse reads
+    the trained values without a word, also through a tensor that shares
+    the inputs' storage (a whole leaf of ``partition.distribute``, a
+    tenant's guest array that a ``vm_nocopy`` transfer aliases on the
+    CPU). ``opt_cfg`` defaults to
     ``OptConfig(state_dtype=cfg.opt_dtype)``. On a mesh the step sums
     each gradient leaf over the axes its parameter is replicated on and
     clips by the norm of the whole tree; with ``micro_steps`` n > 1 each
@@ -363,7 +372,7 @@ def build_train(cfg, device, cell, opt_cfg=None):
     params_abs = abstract_params(model)
     opt_abs = optim.init(opt_cfg, params_abs)
     batch_abs = model.input_specs(cell)
-    return (optim.make_train_step(model, opt_cfg),
+    return (optim.make_train_step(model, opt_cfg, donate=True),
             (params_abs, opt_abs, batch_abs))
 
 

@@ -235,7 +235,10 @@ def rank_main(rank, store, arch, inp_path, out_path, meshes=MESHES,
         tr, _ = steps.build_train(cfg, mesh,
                                   ShapeCell("t", S_TRAIN, B, "train"))
         from repro_torch import optim
-        p = part.distribute(params, tr.specs[0], mesh)
+        # the step updates its params in place, and a replicated leaf
+        # of ``distribute`` is the tensor itself: the next mesh reads
+        # ``params`` again
+        p = part.distribute(steps_copy(params), tr.specs[0], mesh)
         o = part.distribute(
             optim.init(optim.OptConfig(state_dtype=cfg.opt_dtype), params),
             tr.specs[1], mesh)
@@ -301,7 +304,7 @@ def one_device(arch, inputs, sharding=None):
         r["decode_logits"].append(logits)
     r["decode_caches"] = caches
     tr, _ = steps.build_train(cfg, cpu, ShapeCell("t", S_TRAIN, B, "train"))
-    p = params
+    p = steps_copy(params)              # the step consumes its inputs
     o = optim.init(optim.OptConfig(state_dtype=cfg.opt_dtype), p)
     r["losses"], r["gnorms"] = [], []
     for bt in inputs["train"]:
@@ -313,7 +316,8 @@ def one_device(arch, inputs, sharding=None):
 
 
 def steps_copy(tree):
-    """A copy of a cache tree (decode updates caches in place)."""
+    """A copy of a tree (decode updates caches in place, a train step
+    its params and optimizer state)."""
     if isinstance(tree, dict):
         return {k: steps_copy(v) for k, v in tree.items()}
     if isinstance(tree, list):

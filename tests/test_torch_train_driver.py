@@ -78,7 +78,7 @@ def test_accumulation_runs_and_stays_close(tmp_path):
 def test_train_program_through_a_tenant():
     """``build_step_for_cell`` of a train cell, through the VMM's
     compile service: the program's abstract args are the train trees,
-    and a run returns new trees and the loss."""
+    and a run updates the trees in place, returns them and the loss."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeCell
     from repro_torch.core import ProgramRequest
@@ -102,9 +102,13 @@ def test_train_program_through_a_tenant():
         state = optim.init(optim.OptConfig(), params)
         batch = batch_from_numpy(pipeline_for(
             cfg, ShapeCell("t", 16, 2, "train")).batch(0))
+        before = params["lm_head"].clone()
         new, new_state, m = tenant.device.run(params, state, batch)
         assert int(new_state["step"]) == 1 and np.isfinite(float(m["loss"]))
-        assert not torch.equal(new["lm_head"], params["lm_head"])
+        # the program consumes its inputs, as the reference's donates
+        # them: the trees it returns are the ones it was given, updated
+        assert new is params and new_state is state
+        assert not torch.equal(new["lm_head"], before)
     finally:
         vmm.shutdown()
 

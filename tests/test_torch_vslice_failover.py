@@ -141,7 +141,9 @@ def rank_main(rank, store, ref_path, out_path, ckpt):
     def start(specs, mesh):
         if mesh.get_coordinate() is None:
             return None, None
-        return (part.distribute(params, specs[0], mesh),
+        # the step consumes its inputs, and a replicated leaf of
+        # ``distribute`` is the tensor itself: each start copies
+        return (part.distribute(base.steps_copy(params), specs[0], mesh),
                 part.distribute(optim.init(oc, params), specs[1], mesh))
 
     vmm = VMM(pod, policy="hybrid", hbm_per_chip=HBM, ckpt_root=ckpt)
