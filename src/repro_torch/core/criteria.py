@@ -57,7 +57,7 @@ class CriteriaReport:
 
 def report(vmm, perf_ratio: Optional[float] = None,
            same_artifact: Optional[bool] = None) -> CriteriaReport:
-    ops_seen = {r.op for r in vmm.oplog.records}
+    ops_seen = vmm.oplog.ops_seen()
     coverage = sum(1 for o in MMD_OPERATORS if o in ops_seen) / len(
         MMD_OPERATORS)
     return CriteriaReport(
@@ -67,7 +67,7 @@ def report(vmm, perf_ratio: Optional[float] = None,
         tenants=len(vmm.tenants),
         floorplan_utilization=vmm.floorplanner.utilization(),
         isolation_violations=vmm.auditor.summary(),
-        oplog_records=len(vmm.oplog.records),
+        oplog_records=vmm.oplog.n_records(),
         oplog_completeness=vmm.oplog.completeness(),
         checkpoints=len(vmm.oplog.query(op="checkpoint")),
         migrations=len(vmm.oplog.query(op="migrate")),

@@ -5,8 +5,8 @@ VMs and physical device with software … empowers VM live migration,
 checkpoint and restore." Here:
 
 * ``OpLog`` — every mediated operation is appended (FEV: all ops;
-  HYBRID: control plane always, data plane sampled). Queryable for the
-  criteria report.
+  HYBRID: control plane always, data plane sampled; the data plane's
+  into a ring of the newest). Queryable for the criteria report.
 * ``TenantCheckpointer`` — snapshot/restore of a tenant's device-resident
   state (params / optimizer / step / loaded-program identity) through the
   checkpointing substrate; restore places the state on the *target*
@@ -18,6 +18,7 @@ from __future__ import annotations
 import os
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -41,10 +42,20 @@ class OpRecord:
 
 
 class OpLog:
+    """Control-plane records are all kept; data-plane records (a run,
+    read or write each, for as long as the VMM lives) go to a ring of
+    the newest ``DATA_CAPACITY``, while the counts stay exact."""
+
+    DATA_CAPACITY = 4096
+
     def __init__(self, sample_data_plane: float = 1.0):
-        self.records: List[OpRecord] = []
+        self._control: List[OpRecord] = []            # guarded-by: _lock
+        self._data: deque = deque(                    # guarded-by: _lock
+            maxlen=self.DATA_CAPACITY)
         self.sample_data_plane = sample_data_plane
-        self._n_data_ops = 0
+        self._n_data_ops = 0                          # guarded-by: _lock
+        self._n_data_logged = 0                       # guarded-by: _lock
+        self._ops_seen: set = set()                   # guarded-by: _lock
         self._lock = threading.Lock()
 
     CONTROL_OPS = {"open", "close", "alloc", "free", "reprogram",
@@ -52,7 +63,8 @@ class OpLog:
                    "set_status", "get_info", "admit", "evict"}
 
     def begin(self, tenant: str, op: str, detail=None) -> Optional[OpRecord]:
-        if op not in self.CONTROL_OPS:
+        control = op in self.CONTROL_OPS
+        if not control:
             with self._lock:
                 self._n_data_ops += 1
                 if self.sample_data_plane < 1.0 and (
@@ -61,25 +73,44 @@ class OpLog:
                     return None
         r = OpRecord(tenant, op, detail or {}, time.perf_counter())
         with self._lock:
-            self.records.append(r)
+            if control:
+                self._control.append(r)
+            else:
+                self._data.append(r)
+                self._n_data_logged += 1
+            self._ops_seen.add(op)
         return r
 
     def end(self, rec: Optional[OpRecord]):
         if rec is not None:
             rec.t_end = time.perf_counter()
 
-    def query(self, tenant=None, op=None) -> List[OpRecord]:
+    @property
+    def records(self) -> List[OpRecord]:
+        """The records held, in the order they began."""
         with self._lock:
-            return [r for r in self.records
-                    if (tenant is None or r.tenant == tenant)
-                    and (op is None or r.op == op)]
+            return sorted(self._control + list(self._data),
+                          key=lambda r: r.t_start)
+
+    def n_records(self) -> int:
+        """Records ever logged (the ring's evictions included)."""
+        with self._lock:
+            return len(self._control) + self._n_data_logged
+
+    def ops_seen(self) -> set:
+        """Every op ever logged."""
+        with self._lock:
+            return set(self._ops_seen)
+
+    def query(self, tenant=None, op=None) -> List[OpRecord]:
+        return [r for r in self.records
+                if (tenant is None or r.tenant == tenant)
+                and (op is None or r.op == op)]
 
     def completeness(self) -> float:
         """Fraction of issued data-plane ops that were recorded."""
         with self._lock:
-            n_logged = sum(1 for r in self.records
-                           if r.op not in self.CONTROL_OPS)
-            return n_logged / max(self._n_data_ops, 1)
+            return self._n_data_logged / max(self._n_data_ops, 1)
 
     def op_latency_stats(self) -> dict:
         """Per-op latency rollup from the ``perf_counter`` stamps every
@@ -87,11 +118,10 @@ class OpLog:
         p95_ms}}`` over completed records. This is the registry surface
         ``VMM.stats()["ops"]`` exposes (and fig6b reads) instead of
         benchmarks re-measuring with private timers."""
-        with self._lock:
-            by_op = {}
-            for r in self.records:
-                if r.t_end > 0.0:
-                    by_op.setdefault(r.op, []).append(r.duration_ms)
+        by_op = {}
+        for r in self.records:
+            if r.t_end > 0.0:
+                by_op.setdefault(r.op, []).append(r.duration_ms)
         out = {}
         for op, ds in by_op.items():
             ds.sort()

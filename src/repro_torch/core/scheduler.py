@@ -61,6 +61,7 @@ from typing import Callable, Dict, Optional
 from repro_torch.analysis.lock_watchdog import note_callback
 from repro_torch.core.mmu import MMUError
 from repro_torch.obs import NULL_HUB
+from repro_torch.obs import spans as obs_spans
 
 # IRQ sources (shared with the VMM; re-exported from repro.core.vmm for
 # backward compatibility).
@@ -234,13 +235,19 @@ class DataPlane:
                     time.monotonic(), seq)
 
     def _run_job(self, job: _Job):
+        # the plane.run span covers the whole service path of every op;
+        # the op's service time (straggler EWMA, accounting,
+        # plane_service_s) is the work alone, from after enter_op
+        tl = obs_spans.ACTIVE
+        sid = tl.open("plane.run", job.seq, tag=job.op) \
+            if tl is not None else 0
         t = job.tenant
         with self._lock:
             e = self._entries.get(t.name)
         rec = self.oplog.begin(t.name, job.op, job.detail) \
             if (self.oplog is not None and self.log_ops) else None
         t.enter_op()
-        t0 = time.perf_counter()
+        t0 = time.monotonic()
         ok, val = True, None
         try:
             val = job.work()
@@ -248,7 +255,7 @@ class DataPlane:
             ok, val = False, exc
         finally:
             t.exit_op()
-            dt = time.perf_counter() - t0
+            dt = time.monotonic() - t0
             self._observe(t, job.op, dt)
             if rec is not None:
                 self.oplog.end(rec)
@@ -276,6 +283,8 @@ class DataPlane:
             job.future.set_result(val)
         else:
             job.future.set_exception(val)
+        if sid:
+            tl.close(sid)
         return dt
 
     def _account_locked(self, e: "_TenantEntry", job: "_Job", dt: float,

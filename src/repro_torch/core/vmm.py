@@ -84,6 +84,7 @@ from repro_torch.core.shell import CompletionQueue, TransferEngine
 from repro_torch.core.tenant import GuestBuffer, GuestDevice, Tenant
 from repro_torch.core.vslice import Floorplanner, card
 from repro_torch.obs import NULL_HUB, ObsHub
+from repro_torch.obs import spans as obs_spans
 
 
 class AdmissionError(Exception):
@@ -465,8 +466,16 @@ class VMM:
 
     def _run_work(self, t: Tenant, args, kw):
         def work():
+            tl = obs_spans.ACTIVE
+            sid = tl.open("tenant.program", t.step) if tl is not None \
+                else 0
             out = t.program(*args, **kw) if t.vslice.member else None
+            if sid:
+                tl.close(sid)
+                sid = tl.open("vmm.irq", t.step)
             t.cq.raise_event(IRQ_DONE, "run_done", {"step": t.step})
+            if sid:
+                tl.close(sid)
             t.step += 1
             return out
         return work
@@ -658,7 +667,7 @@ class VMM:
             "crc_failures": self.loader.crc_failures,
             "violations": self.auditor.summary(),
             "transfer": self.transfer.stats.__dict__,
-            "oplog_records": len(self.oplog.records),
+            "oplog_records": self.oplog.n_records(),
             # per-op latency rollup (p50/p95/mean) from the OpRecord
             # perf_counter stamps — fig6b reads this instead of private
             # timers

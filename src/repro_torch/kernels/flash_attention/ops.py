@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.obs import spans as obs_spans
 
 NAME = "flash_attention"
 HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
@@ -82,12 +83,16 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        tl = obs_spans.ACTIVE
+        sid = tl.open("mixer.backward", tag="attn") if tl is not None else 0
         q, k, v = ctx.saved_tensors
         with torch.enable_grad():
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
             out = flash_attention_ref(*qkv, causal=ctx.causal,
                                       window=ctx.window)
             dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        if sid:
+            tl.close(sid)
         return dq, dk, dv, None, None
 
 

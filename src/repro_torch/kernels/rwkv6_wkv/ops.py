@@ -22,6 +22,7 @@ import torch
 from repro_torch.kernels import common
 from repro_torch.kernels.rwkv6_wkv.chunked import WKV_CHUNK, wkv_chunked
 from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
+from repro_torch.obs import spans as obs_spans
 
 NAME = "rwkv6_wkv"
 HEAD_DIMS = tuple(range(16, 129, 16))
@@ -92,10 +93,15 @@ class _Wkv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, go, gs):
+        tl = obs_spans.ACTIVE
+        sid = tl.open("mixer.backward", tag="rwkv") if tl is not None else 0
         with torch.enable_grad():
             ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             o, s_fin = wkv_chunked(*ins)
-            return torch.autograd.grad((o, s_fin), ins, (go, gs))
+            grads = torch.autograd.grad((o, s_fin), ins, (go, gs))
+        if sid:
+            tl.close(sid)
+        return grads
 
 
 def _kernel(r, k, v, logw, u, s0):

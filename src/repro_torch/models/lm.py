@@ -47,6 +47,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import apply_ffn, apply_norm, dt, init_ffn, \
     init_norm
+from repro_torch.obs import spans as obs_spans
 
 MIXERS = ("attn", "swa", "rglru", "rwkv")
 FFNS = ("swiglu", "gelu", "moe", "channelmix")
@@ -570,10 +571,15 @@ def apply_stack_full(cfg, specs, layers, x, positions, capacity=0,
     if not make_cache:
         layer = _maybe_remat(cfg, layer, layers)
     ks, vs, rows = [], [], []
+    tl = obs_spans.ACTIVE
     for i, (spec, p) in enumerate(zip(specs, layers)):
+        sid = tl.open("model.layer", i, tag=spec.mixer) if tl is not None \
+            else 0
         x, kv, r, a = layer(cfg, spec, p, x, positions, capacity, enc_out,
                             causal, make_cache, _at(mesh, i),
                             prepare=prepare, i=i)
+        if sid:
+            tl.close(sid)
         if a is not None:
             aux = aux + a
         if kv is not None:
@@ -611,20 +617,35 @@ def apply_stack_decode(cfg, specs, layers, x, state, positions,
                        block_tables):
     # once per step: the live slots, then what the layers derive from
     # the positions (index tensors, rope tables), kept by the first
+    tl = obs_spans.ACTIVE
+    sid = tl.open("model.prep") if tl is not None else 0
     step = {"live": (positions >= 0).nonzero(as_tuple=True)[0]}
-    for spec, p, a, rows in zip(specs, layers, attn_index(specs),
-                                state["rows"]):
+    if sid:
+        tl.close(sid)
+    for i, (spec, p, a, rows) in enumerate(zip(specs, layers,
+                                               attn_index(specs),
+                                               state["rows"])):
+        sid = tl.open("model.layer", i, tag=spec.mixer) if tl is not None \
+            else 0
         x = apply_layer_decode(cfg, spec, p, x, _pools(state, a), rows,
                                positions, block_tables, step)
+        if sid:
+            tl.close(sid)
     return x
 
 
 def apply_stack_chunk(cfg, specs, layers, x, state, positions, block_row,
                       slot):
-    for spec, p, a, rows in zip(specs, layers, attn_index(specs),
-                                state["rows"]):
+    tl = obs_spans.ACTIVE
+    for i, (spec, p, a, rows) in enumerate(zip(specs, layers,
+                                               attn_index(specs),
+                                               state["rows"])):
+        sid = tl.open("model.layer", i, tag=spec.mixer) if tl is not None \
+            else 0
         x = apply_layer_chunk(cfg, spec, p, x, _pools(state, a), rows,
                               positions, block_row, slot)
+        if sid:
+            tl.close(sid)
     return x
 
 

@@ -35,6 +35,7 @@ from repro_torch.models.layers import (abs_position_vector, add_abs_positions,
                                        sharded_cross_entropy,
                                        softmax_cross_entropy)
 from repro_torch.models.recurrent import FP32_PARAMS
+from repro_torch.obs import spans as obs_spans
 
 #: seed of the fused step's Gumbel draws, combined with the step number
 #: (the reference folds the step into ``PRNGKey(0x5e)``)
@@ -229,11 +230,15 @@ class Model:
         """Token embeddings in the compute dtype; without rope, plus the
         sinusoidal vectors of ``positions`` ((S,) for a chunk, (B, 1) for
         a decode step)."""
+        tl = obs_spans.ACTIVE
+        sid = tl.open("model.embed") if tl is not None else 0
         x = self._lookup(params, tokens)
-        if self.cfg.use_rope:
-            return x
-        return x + abs_position_vector(positions, self.cfg.d_model).to(
-            x.dtype)
+        if not self.cfg.use_rope:
+            x = x + abs_position_vector(positions, self.cfg.d_model).to(
+                x.dtype)
+        if sid:
+            tl.close(sid)
+        return x
 
     def _project_patches(self, params, patches):
         """The VLM projector: GELU (tanh form, ``jax.nn.gelu``'s
@@ -279,6 +284,8 @@ class Model:
         token embeddings after the VLM's projected patches; sinusoidal
         positions over the whole sequence without rope."""
         cfg = self.cfg
+        tl = obs_spans.ACTIVE
+        sid = tl.open("model.embed") if tl is not None else 0
         x = self._lookup(params, batch["tokens"])
         if cfg.family == "vlm":
             pre = self._project_patches(params, batch["patches"])
@@ -287,6 +294,8 @@ class Model:
             else None
         if not cfg.use_rope:
             x = add_abs_positions(x)
+        if sid:
+            tl.close(sid)
         return x, enc_out
 
     def _vocab_split(self):
@@ -299,6 +308,8 @@ class Model:
     def _lm_logits(self, params, x):
         """Logits of the rank's vocab block on a mesh that splits it."""
         cfg = self.cfg
+        tl = obs_spans.ACTIVE
+        sid = tl.open("model.head") if tl is not None else 0
         cd = dt(cfg.compute_dtype)
         x = apply_norm(cfg, params["final_norm"], x)
         logits = x.to(cd) @ self._top(params, "lm_head").to(cd)
@@ -309,6 +320,8 @@ class Model:
             zero = torch.zeros((), dtype=logits.dtype, device=x.device)
             logits = logits + torch.where(pad, torch.full_like(zero, -1e30),
                                           zero)
+        if sid:
+            tl.close(sid)
         return logits
 
     # ------------------------------------------------------------------
@@ -355,6 +368,8 @@ class Model:
         slots (position p at slot p % C) — and, for recurrent and
         cross-attention layers, ``"rows"`` (one dict of batch rows per
         layer; see ``lm``)."""
+        tl = obs_spans.ACTIVE
+        sid = tl.open("model.prefill") if tl is not None else 0
         x, enc_out = self._assemble_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         x, caches, _ = lm.apply_stack_full(self.cfg, self.specs,
@@ -362,7 +377,10 @@ class Model:
                                            capacity or 0, enc_out=enc_out,
                                            mesh=self._layers_mesh(),
                                            prepare=self._prepare())
-        return self._lm_logits(params, x[:, -1:])[:, 0], caches
+        logits = self._lm_logits(params, x[:, -1:])[:, 0]
+        if sid:
+            tl.close(sid)
+        return logits, caches
 
     # ------------------------------------------------------------------
     # Decode: one token against contiguous ring caches
@@ -435,10 +453,15 @@ class Model:
         """token (B,1) int; positions (B,) int32 per-slot write positions
         (-1 = dead slot); block_tables (B, nb) int32 → (logits (B, V*),
         state)."""
+        tl = obs_spans.ACTIVE
+        sid = tl.open("model.decode_paged") if tl is not None else 0
         x = self._embed_tokens(params, token, positions.clamp_min(0)[:, None])
         x = lm.apply_stack_decode(self.cfg, self.specs, params["layers"], x,
                                   state, positions, block_tables)
-        return self._lm_logits(params, x[:, -1:])[:, 0], state
+        logits = self._lm_logits(params, x[:, -1:])[:, 0]
+        if sid:
+            tl.close(sid)
+        return logits, state
 
     def prefill_chunk_paged(self, params, state, tokens, slot, block_row,
                             start):
@@ -451,12 +474,17 @@ class Model:
             raise NotImplementedError(
                 "chunked prefill: vlm/enc-dec frontends prefill "
                 "monolithically")
+        tl = obs_spans.ACTIVE
+        sid = tl.open("model.prefill_chunk_paged") if tl is not None else 0
         positions = start + torch.arange(tokens.shape[1],
                                          device=tokens.device)
         x = self._embed_tokens(params, tokens, positions)
         x = lm.apply_stack_chunk(self.cfg, self.specs, params["layers"], x,
                                  state, positions, block_row, int(slot))
-        return self._lm_logits(params, x[:, -1:])[:, 0], state
+        logits = self._lm_logits(params, x[:, -1:])[:, 0]
+        if sid:
+            tl.close(sid)
+        return logits, state
 
     def gumbel_noise(self, shape, step):
         """Gumbel(0, 1) draws from a generator seeded by (SAMPLE_SEED,
@@ -472,11 +500,19 @@ class Model:
         (B,) token ids leave the device. temps (B,) fp32 (0 = greedy);
         ``noise`` (B, V*) overrides the step's Gumbel draws (tests inject
         the reference's). → (tokens (B,) int32, state)."""
+        tl = obs_spans.ACTIVE
+        sid = tl.open("model.decode_paged_fused") if tl is not None else 0
         logits, state = self.decode_paged(params, state, token, positions,
                                           block_tables)
+        if sid:
+            ssid = tl.open("model.sample")
         if noise is None:
             noise = self.gumbel_noise(logits.shape, step)
-        return sample_tokens_op(logits, temps, noise), state
+        toks = sample_tokens_op(logits, temps, noise)
+        if sid:
+            tl.close(ssid)
+            tl.close(sid)
+        return toks, state
 
     def copy_kv_page(self, state, src, dst):
         """Device-side page copy ``dst ← src`` across every K/V pool, in

@@ -20,10 +20,17 @@ enabled < 5% on the paged-KV serving path).
 A module-level :data:`NULL_HUB` (disabled) is the default everywhere a
 component takes an ``obs=`` parameter, so un-instrumented construction
 paths keep working unchanged.
+
+Beside the tracer the hub holds a host span timeline (``hub.spans``,
+:mod:`repro_torch.obs.spans`): the layers' spans and each host
+synchronisation with the card, recorded process-wide while the hub is
+activated (``hub.activate()`` … ``hub.deactivate()``), whatever hub
+each component was given.
 """
 from __future__ import annotations
 
 from repro_torch.obs.flight import TRIGGER_KINDS, FlightRecorder
+from repro_torch.obs import spans
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram, MetricsRegistry)
 from repro_torch.obs.trace import (MAX_EVENTS, PHASE_ADMITTED, PHASE_DECODE,
                              PHASE_DEFERRED, PHASE_DENIED, PHASE_DONE,
@@ -31,6 +38,7 @@ from repro_torch.obs.trace import (MAX_EVENTS, PHASE_ADMITTED, PHASE_DECODE,
                              PHASE_QUEUED, PHASE_REFAULT, PHASE_SWAP_OUT,
                              RequestTracer,
                              Span)
+from repro_torch.obs.spans import SpanTimeline
 
 
 class ObsHub:
@@ -48,6 +56,18 @@ class ObsHub:
         self.tracer = RequestTracer(capacity=trace_capacity,
                                     registry=self.registry)
         self.flight = FlightRecorder(capacity=flight_capacity)
+        self.spans = SpanTimeline()
+
+    # -- the span timeline ----------------------------------------------
+    def activate(self) -> "ObsHub":
+        """Record every site's spans and the host's synchronisations into
+        ``self.spans`` until :meth:`deactivate`."""
+        spans.activate(self.spans)
+        return self
+
+    def deactivate(self):
+        if spans.ACTIVE is self.spans:
+            spans.deactivate()
 
     # -- convenience recorders (no-ops when disabled) -------------------
     def count(self, name: str, n: float = 1.0, **labels):
@@ -93,5 +113,6 @@ __all__ = [
     "NULL_HUB", "ObsHub", "PHASE_ADMITTED", "PHASE_DECODE",
     "PHASE_DEFERRED", "PHASE_DENIED", "PHASE_DONE", "PHASE_PREFILL",
     "PHASE_PREFILL_CHUNK", "PHASE_QUEUED", "PHASE_REFAULT",
-    "PHASE_SWAP_OUT", "RequestTracer", "Span", "TRIGGER_KINDS",
+    "PHASE_SWAP_OUT", "RequestTracer", "Span", "SpanTimeline",
+    "TRIGGER_KINDS",
 ]

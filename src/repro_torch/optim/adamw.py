@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.checkpointing.checkpoint import (flatten_with_path,
                                                   tree_map, unflatten)
+from repro_torch.obs import spans as obs_spans
 
 
 @dataclass(frozen=True)
@@ -184,10 +185,17 @@ def loss_and_grads(model, params, batch):
     loss over every leaf (the counterpart of ``jax.value_and_grad`` with
     ``has_aux``). A leaf that the loss does not reach raises."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    tl = obs_spans.ACTIVE
     with torch.enable_grad():
+        sid = tl.open("train.forward") if tl is not None else 0
         loss, metrics = model.loss(live, batch)
+        if sid:
+            tl.close(sid)
+            sid = tl.open("train.backward")
         flat = leaves(live)
         grads = torch.autograd.grad(loss, flat)
+        if sid:
+            tl.close(sid)
     by_path = {path: g for (path, _), g in
                zip(flatten_with_path(live), grads)}
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
@@ -205,8 +213,12 @@ def make_train_step(model, opt: OptConfig, donate=False):
     ``donate_argnums=(0, 1)``; else it returns new trees
     (:func:`update`) and leaves its inputs as they were."""
     apply = update_ if donate else update
+    calls = [0]
 
     def train_step(params, opt_state, batch):
+        tl = obs_spans.ACTIVE
+        sid = tl.open("train.step", calls[0]) if tl is not None else 0
+        calls[0] += 1
         if opt.micro_steps <= 1:
             loss, metrics, grads = loss_and_grads(model, params, batch)
         else:
@@ -225,7 +237,11 @@ def make_train_step(model, opt: OptConfig, donate=False):
             grads = tree_map(lambda g: g.float() / n, grads)
             loss = loss / n
             metrics = {}
+        osid = tl.open("train.optimizer") if sid else 0
         new_params, new_state, om = apply(opt, grads, opt_state, params)
+        if sid:
+            tl.close(osid)
+            tl.close(sid)
         out = {"loss": loss, **om}
         out.update({k: v for k, v in metrics.items() if k != "n_tok"})
         return new_params, new_state, out

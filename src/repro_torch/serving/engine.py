@@ -70,6 +70,7 @@ from repro_torch.obs import (NULL_HUB, PHASE_ADMITTED, PHASE_DECODE,
                              PHASE_DEFERRED, PHASE_PREFILL,
                              PHASE_PREFILL_CHUNK, PHASE_REFAULT,
                              PHASE_SWAP_OUT)
+from repro_torch.obs import spans as obs_spans
 from repro_torch.serving.paged_kv import PagedKVCache
 from repro_torch.serving.paged_state import PagedRecurrentState
 
@@ -250,7 +251,22 @@ class ServeEngine:
         self._fused_fn = wrap(decode_wrap, model.decode_paged_fused)
 
     def _dev(self, a) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        tl = obs_spans.ACTIVE
+        sid = tl.open("engine.upload") if tl is not None else 0
+        out = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        if sid:
+            tl.close(sid)
+        return out
+
+    @staticmethod
+    def _host(t, rid: int = -1) -> np.ndarray:
+        """``t`` read back to the host: the host waits for the card."""
+        tl = obs_spans.ACTIVE
+        sid = tl.open("engine.readback", rid) if tl is not None else 0
+        out = t.cpu().numpy()
+        if sid:
+            tl.close(sid)
+        return out
 
     # ------------------------------------------------------------------
     def submit(self, prompt_tokens, max_new_tokens=16, temperature=0.0):
@@ -302,105 +318,128 @@ class ServeEngine:
                 if not self.waiting:
                     break
                 req = self.waiting.popleft()
-            plen = len(req.prompt)
-            # the slot's sequence: a VLM's image rows, then the prompt
-            seq_len = self._n_prefix + plen
-            # chunked: the admission ask is one chunk's pages, later
-            # chunks fault the rest of the table in incrementally
-            lease_len = (min(plen, self.chunk_tokens) if self._chunked
-                         else seq_len)
-            owner = f"{self.owner_prefix}req{req.rid}"
-            n_pages = max(1, -(-lease_len // self.kv.page_size))
-            if self.rstate is not None:
-                n_pages += self.rstate.blocks_per_slot
-            live = any(s is not None for s in self.slots)
-            if self.admission_gate is not None:
-                note_callback("engine.admission_gate")
-            gated = (self.admission_gate is not None and live
-                     and not self.admission_gate(owner, n_pages))
-            if gated and self._swap and self._swap_out_victim():
-                # swap before deny: parking a victim freed its private
-                # pages — ask the gate again before deferring
-                gated = not self.admission_gate(owner, n_pages)
-            if gated:
-                # pool pressure: defer the newcomer before touching the
-                # MMU. Advisory only — with no live slot (nothing will
-                # ever free a page) the lease is tried, so exhaustion
-                # still surfaces as MMUError below
-                self._defer(req, "pool_pressure")
+            tl = obs_spans.ACTIVE
+            sid = tl.open("engine.admit", req.rid) if tl is not None else 0
+            try:
+                more = self._admit_one(params, i, req)
+            finally:
+                if sid:
+                    tl.close(sid)
+            if not more:
                 break
-            prompt = req.prompt if self._share else None
+
+    def _admit_one(self, params, i: int, req: Request) -> bool:
+        """Admit ``req`` into free slot ``i`` (a monolithic prefill runs
+        here) → False when it was deferred and admission stops."""
+        plen = len(req.prompt)
+        # the slot's sequence: a VLM's image rows, then the prompt
+        seq_len = self._n_prefix + plen
+        # chunked: the admission ask is one chunk's pages, later
+        # chunks fault the rest of the table in incrementally
+        lease_len = (min(plen, self.chunk_tokens) if self._chunked
+                     else seq_len)
+        owner = f"{self.owner_prefix}req{req.rid}"
+        n_pages = max(1, -(-lease_len // self.kv.page_size))
+        if self.rstate is not None:
+            n_pages += self.rstate.blocks_per_slot
+        live = any(s is not None for s in self.slots)
+        if self.admission_gate is not None:
+            note_callback("engine.admission_gate")
+        gated = (self.admission_gate is not None and live
+                 and not self.admission_gate(owner, n_pages))
+        if gated and self._swap and self._swap_out_victim():
+            # swap before deny: parking a victim freed its private
+            # pages — ask the gate again before deferring
+            gated = not self.admission_gate(owner, n_pages)
+        if gated:
+            # pool pressure: defer the newcomer before touching the
+            # MMU. Advisory only — with no live slot (nothing will
+            # ever free a page) the lease is tried, so exhaustion
+            # still surfaces as MMUError below
+            self._defer(req, "pool_pressure")
+            return False
+        prompt = req.prompt if self._share else None
+        tl = obs_spans.ACTIVE
+        sid = tl.open("engine.lease", req.rid) if tl is not None else 0
+        try:
+            try:
+                shared = self.kv.admit(i, owner, seq_len,
+                                       lease_len=lease_len,
+                                       prompt=prompt)
+            except MMUError:
+                # the lease bounced on a dry pool: park a victim and
+                # retry once
+                if not (self._swap and self._swap_out_victim()):
+                    raise
+                shared = self.kv.admit(i, owner, seq_len,
+                                       lease_len=lease_len,
+                                       prompt=prompt)
+        except MMUError as exc:
+            # pool exhausted / quota: requeue at the front, retry
+            # next step once EOS recycling returns pages
+            self._defer(req, type(exc).__name__)
+            if all(s is None for s in self.slots):
+                raise         # nothing live will ever free a page
+            return False
+        finally:
+            if sid:
+                tl.close(sid)
+        if self.rstate is not None:
+            # the slot's recurrent-state pages lease from the same
+            # pool, under the same deferral story
+            sid = tl.open("engine.lease", req.rid) if tl is not None else 0
             try:
                 try:
-                    shared = self.kv.admit(i, owner, seq_len,
-                                           lease_len=lease_len,
-                                           prompt=prompt)
+                    self.rstate.admit(i, owner)
                 except MMUError:
-                    # the lease bounced on a dry pool: park a victim and
-                    # retry once
                     if not (self._swap and self._swap_out_victim()):
                         raise
-                    shared = self.kv.admit(i, owner, seq_len,
-                                           lease_len=lease_len,
-                                           prompt=prompt)
+                    self.rstate.admit(i, owner)
             except MMUError as exc:
-                # pool exhausted / quota: requeue at the front, retry
-                # next step once EOS recycling returns pages
+                self.kv.release(i)     # its lease was not counted yet
                 self._defer(req, type(exc).__name__)
                 if all(s is None for s in self.slots):
-                    raise         # nothing live will ever free a page
-                break
-            if self.rstate is not None:
-                # the slot's recurrent-state pages lease from the same
-                # pool, under the same deferral story
-                try:
-                    try:
-                        self.rstate.admit(i, owner)
-                    except MMUError:
-                        if not (self._swap and self._swap_out_victim()):
-                            raise
-                        self.rstate.admit(i, owner)
-                except MMUError as exc:
-                    self.kv.release(i)     # its lease was not counted yet
-                    self._defer(req, type(exc).__name__)
-                    if all(s is None for s in self.slots):
-                        raise
-                    break
-                self.stats.state_pages_leased += self.rstate.blocks_per_slot
-            if self._reset_rows:
-                self.kv.state = self.model.reset_state_row(self.kv.state, i)
-            if shared:
-                self.stats.shared_prefix_hits += 1
-                self.stats.shared_prefix_tokens += shared
-            if self.obs.enabled:
-                self.obs.tracer.event(self.obs_tenant, req.rid,
-                                      PHASE_ADMITTED, slot=i,
-                                      pages=self.kv.tables[i].n_pages,
-                                      shared_tokens=shared)
-            self.slots[i] = req
-            self.stats.admitted += 1
-            self.stats.pages_leased += self.kv.tables[i].n_pages
-            if self._chunked:
-                # the chunk scheduler writes the prompt across later
-                # steps; positions stays -1 (dead for decode) meanwhile.
-                # A warm admission starts past the shared span, whose
-                # K/V pages are already resident and mapped
-                self.positions[i] = -1
-                self._cursor[i] = shared
-                continue
-            logits, caches = self._prefill_fn(params,
-                                              self._newcomer_batch(i, req))
-            self.kv.write_prefill(caches, i, seq_len)
-            if self.obs.enabled:
-                self.obs.tracer.event(self.obs_tenant, req.rid,
-                                      PHASE_PREFILL, tokens=plen)
-            logits = logits.float().cpu().numpy()
-            if self._logits is None:
-                self._logits = np.zeros((self.B, logits.shape[-1]),
-                                        np.float32)
-            self._logits[i] = logits[0]
-            self.positions[i] = seq_len               # next write position
-            self.stats.prefills += 1
+                    raise
+                return False
+            finally:
+                if sid:
+                    tl.close(sid)
+            self.stats.state_pages_leased += self.rstate.blocks_per_slot
+        if self._reset_rows:
+            self.kv.state = self.model.reset_state_row(self.kv.state, i)
+        if shared:
+            self.stats.shared_prefix_hits += 1
+            self.stats.shared_prefix_tokens += shared
+        if self.obs.enabled:
+            self.obs.tracer.event(self.obs_tenant, req.rid,
+                                  PHASE_ADMITTED, slot=i,
+                                  pages=self.kv.tables[i].n_pages,
+                                  shared_tokens=shared)
+        self.slots[i] = req
+        self.stats.admitted += 1
+        self.stats.pages_leased += self.kv.tables[i].n_pages
+        if self._chunked:
+            # the chunk scheduler writes the prompt across later
+            # steps; positions stays -1 (dead for decode) meanwhile.
+            # A warm admission starts past the shared span, whose
+            # K/V pages are already resident and mapped
+            self.positions[i] = -1
+            self._cursor[i] = shared
+            return True
+        logits, caches = self._prefill_fn(params,
+                                          self._newcomer_batch(i, req))
+        self.kv.write_prefill(caches, i, seq_len)
+        if self.obs.enabled:
+            self.obs.tracer.event(self.obs_tenant, req.rid,
+                                  PHASE_PREFILL, tokens=plen)
+        logits = self._host(logits.float(), req.rid)
+        if self._logits is None:
+            self._logits = np.zeros((self.B, logits.shape[-1]),
+                                    np.float32)
+        self._logits[i] = logits[0]
+        self.positions[i] = seq_len               # next write position
+        self.stats.prefills += 1
+        return True
 
     def _newcomer_batch(self, slot: int, req: Request) -> dict:
         """The newcomer's prefill batch: its prompt and its slot's row of
@@ -413,22 +452,27 @@ class ServeEngine:
     # ------------------------------------------------------------------
     # Chunked prefill: bounded prompt writes interleaved with decode
     # ------------------------------------------------------------------
-    def _sample_one(self, logits, temperature):
+    def _sample_one(self, logits, temperature, rid: int = -1):
         """Host-side sample of one token from (V*,) logits — once per
         request, for the first token after the last prefill chunk."""
+        tl = obs_spans.ACTIVE
+        sid = tl.open("engine.sample", rid) if tl is not None else 0
         lg = logits[:self.cfg.vocab]
         if temperature <= 0.0:
-            return int(np.argmax(lg))
-        g = self.rng.gumbel(size=lg.shape[0])
-        return int(np.argmax(lg / temperature + g))
+            tok = int(np.argmax(lg))
+        else:
+            g = self.rng.gumbel(size=lg.shape[0])
+            tok = int(np.argmax(lg / temperature + g))
+        if sid:
+            tl.close(sid)
+        return tok
 
     def _abort_prefill(self, i, exc):
         """A chunk's page fault bounced on the MMU mid-prefill: release
         everything written so far and requeue the request at the front."""
         req = self.slots[i]
         self.stats.pages_freed += self.kv.tables[i].n_pages
-        self.kv.release(i)
-        self._release_state(i)
+        self._release(i, req.rid)
         self.slots[i] = None
         self.positions[i] = -1
         self._cursor[i] = -1
@@ -455,6 +499,8 @@ class ServeEngine:
                 break
             budget -= c
             before = self.kv.tables[i].n_pages
+            tl = obs_spans.ACTIVE
+            sid = tl.open("engine.lease", req.rid) if tl is not None else 0
             try:
                 # incremental leasing: fault in the pages this chunk
                 # spans; write_from=start makes the whole chunk window
@@ -467,6 +513,9 @@ class ServeEngine:
                 self.stats.pages_leased += grown
                 self._abort_prefill(i, exc)
                 continue
+            finally:
+                if sid:
+                    tl.close(sid)
             grown = self.kv.tables[i].n_pages - before
             self.stats.page_faults += grown
             self.stats.pages_leased += grown
@@ -486,8 +535,9 @@ class ServeEngine:
                 # prefill complete: sample the first token on the host
                 # (the one logits round-trip per request), then the slot
                 # joins the fused decode batch
-                lg = logits.float().cpu().numpy()[0]
-                self._next[i] = self._sample_one(lg, req.temperature)
+                lg = self._host(logits.float(), req.rid)[0]
+                self._next[i] = self._sample_one(lg, req.temperature,
+                                                 req.rid)
                 self._cursor[i] = -1
                 self.positions[i] = plen
                 self.stats.prefills += 1
@@ -498,6 +548,15 @@ class ServeEngine:
                 if self.obs.enabled:
                     self.obs.tracer.event(self.obs_tenant, req.rid,
                                           PHASE_PREFILL, tokens=plen)
+
+    def _release(self, i: int, rid: int):
+        """Return slot ``i``'s KV and recurrent-state pages to the MMU."""
+        tl = obs_spans.ACTIVE
+        sid = tl.open("engine.release", rid) if tl is not None else 0
+        self.kv.release(i)
+        self._release_state(i)
+        if sid:
+            tl.close(sid)
 
     def _release_state(self, i: int):
         """Return slot ``i``'s recurrent-state pages (no-op without paged
@@ -618,8 +677,7 @@ class ServeEngine:
         self.positions[i] = -1
         self._cursor[i] = -1
         self.stats.pages_freed += self.kv.tables[i].n_pages
-        self.kv.release(i)                        # pages back to the MMU
-        self._release_state(i)
+        self._release(i, r.rid)                   # pages back to the MMU
         with self._lock:
             self.completed[r.rid] = r
             fut = self._futures.get(r.rid)
@@ -637,12 +695,21 @@ class ServeEngine:
         """One engine step: admit waiting requests into free slots, emit
         one token per active slot, recycle finished slots, advance
         decode with per-slot positions. Returns the finished requests."""
-        if not self.obs.enabled:
+        tl = obs_spans.ACTIVE
+        if tl is None and not self.obs.enabled:
             return self._step(params)
-        t0 = time.perf_counter()
+        # one pair of clock reads: the engine.step span's, which also
+        # feed the step histogram
+        t0 = time.monotonic()
+        sid = tl.open("engine.step", self.stats.steps, t0) \
+            if tl is not None else 0
         finished = self._step(params)
-        self.obs.observe("engine_step_s", time.perf_counter() - t0,
-                         tenant=self.obs_tenant)
+        t1 = time.monotonic()
+        if sid:
+            tl.close(sid, t1)
+        if self.obs.enabled:
+            self.obs.observe("engine_step_s", t1 - t0,
+                             tenant=self.obs_tenant)
         return finished
 
     def _step(self, params) -> List[Request]:
@@ -668,8 +735,14 @@ class ServeEngine:
         if not active:
             return finished
         self.stats.steps += 1
-        nxt = (self._next if self._chunked
-               else self._sample(self._logits, active))
+        tl = obs_spans.ACTIVE
+        if self._chunked:
+            nxt = self._next
+        else:
+            sid = tl.open("engine.sample") if tl is not None else 0
+            nxt = self._sample(self._logits, active)
+            if sid:
+                tl.close(sid)
         token = np.zeros((self.B, 1), np.int32)
         for i in active:
             r = self.slots[i]
@@ -693,6 +766,41 @@ class ServeEngine:
                 self._finish(i, finished)
             elif self.positions[i] >= self.capacity:
                 self._finish(i, finished)               # KV budget: truncate
+        sid = tl.open("engine.lease") if tl is not None else 0
+        self._demand_page(finished)
+        if sid:
+            tl.close(sid)
+        remaining = [i for i in range(self.B) if self.slots[i] is not None
+                     and self.positions[i] >= 0]
+        if not remaining:
+            return finished
+        self.stats.decode_steps += 1
+        args = (params, self.kv.state, self._dev(token),
+                self._dev(self.positions), self._dev(self.kv.block_tables()))
+        if self._chunked:
+            # fused decode: paged attention + on-device sampling — only
+            # the (B,) sampled token ids cross to host, not (B, V) logits
+            temps = np.zeros(self.B, np.float32)
+            for i in remaining:
+                temps[i] = self.slots[i].temperature
+            toks, self.kv.state = self._fused_fn(
+                *args, self._dev(temps), self.stats.steps)
+            toks = self._host(toks)
+            for i in remaining:
+                self._next[i] = int(toks[i])
+        else:
+            logits, self.kv.state = self._decode_fn(*args)
+            self._logits = self._host(logits.float())
+        if self.obs.enabled:
+            for i in remaining:
+                self.obs.tracer.event(self.obs_tenant, self.slots[i].rid,
+                                      PHASE_DECODE)
+        for i in remaining:
+            self.positions[i] += 1
+        return finished
+
+    def _demand_page(self, finished: List[Request]):
+        """Lease each decoding slot the page its next write needs."""
         for i in [i for i in range(self.B) if self.slots[i] is not None
                   and self.positions[i] >= 0]:
             if self.positions[i] < 0:
@@ -727,34 +835,6 @@ class ServeEngine:
                 # (its tokens are already delivered), don't wedge the
                 # batch; pages grown before the failure were counted
                 self._finish(i, finished)
-        remaining = [i for i in range(self.B) if self.slots[i] is not None
-                     and self.positions[i] >= 0]
-        if not remaining:
-            return finished
-        self.stats.decode_steps += 1
-        args = (params, self.kv.state, self._dev(token),
-                self._dev(self.positions), self._dev(self.kv.block_tables()))
-        if self._chunked:
-            # fused decode: paged attention + on-device sampling — only
-            # the (B,) sampled token ids cross to host, not (B, V) logits
-            temps = np.zeros(self.B, np.float32)
-            for i in remaining:
-                temps[i] = self.slots[i].temperature
-            toks, self.kv.state = self._fused_fn(
-                *args, self._dev(temps), self.stats.steps)
-            toks = toks.cpu().numpy()
-            for i in remaining:
-                self._next[i] = int(toks[i])
-        else:
-            logits, self.kv.state = self._decode_fn(*args)
-            self._logits = logits.float().cpu().numpy()
-        if self.obs.enabled:
-            for i in remaining:
-                self.obs.tracer.event(self.obs_tenant, self.slots[i].rid,
-                                      PHASE_DECODE)
-        for i in remaining:
-            self.positions[i] += 1
-        return finished
 
     def run_round(self, params) -> List[Request]:
         """Drain: step until nothing is waiting or in flight."""
