@@ -143,12 +143,6 @@ def sinusoidal_positions(n_pos, d, offset=0):
                                            axis=-1).astype(np.float32))
 
 
-def add_abs_positions(x):
-    """x (B, S, D) + the sinusoidal table of positions 0..S-1."""
-    table = sinusoidal_positions(x.shape[1], x.shape[2]).to(x.device)
-    return x + table[None].to(x.dtype)
-
-
 def abs_position_vector(pos, d):
     """Sinusoidal embedding of a position tensor (…,) → (…, d) fp32."""
     half = d // 2

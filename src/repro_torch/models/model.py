@@ -29,10 +29,10 @@ import torch.nn.functional as F
 from repro_torch.kernels.decode_attention.ops import sample_tokens_op
 from repro_torch.models import attention as attn
 from repro_torch.models import lm
-from repro_torch.models.layers import (abs_position_vector, add_abs_positions,
-                                       apply_norm, dense_init, dt,
-                                       embed_init, init_norm,
-                                       sharded_cross_entropy,
+from repro_torch.models.layers import (abs_position_vector, apply_norm,
+                                       dense_init, dt, embed_init,
+                                       init_norm, sharded_cross_entropy,
+                                       sinusoidal_positions,
                                        softmax_cross_entropy)
 from repro_torch.models.recurrent import FP32_PARAMS
 from repro_torch.obs import spans as obs_spans
@@ -100,6 +100,9 @@ class Model:
             assert cfg.encoder.seq_len == cfg.frontend.n_tokens, \
                 "the encoder reads every frame of the frontend"
             self.enc_specs = lm.encoder_specs(cfg)
+        #: (device, dtype) → the sinusoid table of positions 0..n-1 in
+        #: that dtype, n the longest sequence seen there
+        self._pos_tables = {}
 
     @property
     def n_prefix(self) -> int:
@@ -240,6 +243,26 @@ class Model:
             tl.close(sid)
         return x
 
+    def _add_positions(self, x):
+        """x (B, S, D) + the sinusoidal vectors of positions 0..S-1,
+        sliced from the table this model holds for x's device and dtype:
+        ``sinusoidal_positions`` (the reference's numpy bits) cast once to
+        x's dtype and uploaded once. A call that needs more rows than the
+        table has makes it anew at S rows (span ``model.pos_table``); it
+        never shrinks. Row p does not depend on the table's length, so a
+        slice has the bits of a table made at S."""
+        S, D = x.shape[1], x.shape[2]
+        key = (x.device, x.dtype)
+        table = self._pos_tables.get(key)
+        if table is None or table.shape[0] < S:
+            tl = obs_spans.ACTIVE
+            sid = tl.open("model.pos_table", S) if tl is not None else 0
+            table = sinusoidal_positions(S, D).to(x.device).to(x.dtype)
+            self._pos_tables[key] = table
+            if sid:
+                tl.close(sid)
+        return x + table[:S][None]
+
     def _project_patches(self, params, patches):
         """The VLM projector: GELU (tanh form, ``jax.nn.gelu``'s
         default) between two products. On a mesh the rules split the
@@ -268,7 +291,7 @@ class Model:
             if self.mesh is not None and self.mesh.split("enc_proj", 1):
                 # the rules split its columns: the frames' width whole
                 x = self.mesh.all_gather(x, ("model",), 2)
-        x = add_abs_positions(x)
+        x = self._add_positions(x)
         enc = params["encoder"]
         x, _, _ = lm.apply_stack_full(
             cfg, self.enc_specs, enc["layers"], x,
@@ -293,7 +316,7 @@ class Model:
         enc_out = self.encode(params, batch["frames"]) if cfg.is_encdec \
             else None
         if not cfg.use_rope:
-            x = add_abs_positions(x)
+            x = self._add_positions(x)
         if sid:
             tl.close(sid)
         return x, enc_out

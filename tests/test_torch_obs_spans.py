@@ -323,6 +323,48 @@ def test_train_step_span_tree(hub, arch, mixer):
     assert bwd and set(bwd) == {(mixer, "train.backward")}
 
 
+@pytest.mark.parametrize("arch,builds", [("rwkv6-7b", [1, 0]),
+                                         ("qwen1.5-0.5b", [0, 0])])
+def test_pos_table_opens_once_in_the_first_step(hub, arch, builds):
+    """A model without rope makes its position table in its first
+    forward, under ``model.embed``, and slices it after; rope makes
+    none."""
+    from repro_torch import optim
+    from repro_torch.bridge import batch_from_numpy
+    from repro_torch.data import pipeline_for
+    cfg = get_config(arch, reduced=True)
+    cell = ShapeCell("t", 16, 2, "train")
+    vmm, tenant = virtual_server("cpu", "hybrid")
+    try:
+        tenant.device.reprogram(ProgramRequest(
+            arch=cfg.name, kind="train", seq_len=16, global_batch=2))
+        params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+        state = optim.init(optim.OptConfig(), params)
+        data = pipeline_for(cfg, cell)
+        for step in range(2):
+            params, state, _ = tenant.device.run(
+                params, state, batch_from_numpy(data.batch(step)))
+    finally:
+        vmm.shutdown()
+    r = hub.spans.records()
+    steps = [int(r.ids[i]) for i in r.select("train.step")]
+    assert len(steps) == 2
+
+    def chain(i):
+        out = []
+        while r.parent[i]:
+            i = r.row_of(r.parent[i])
+            out.append(i)
+        return out
+    got = [0, 0]
+    for i in r.select("model.pos_table"):
+        up = chain(i)
+        assert [r.name_of(j) for j in up[:3]] == [
+            "model.embed", "train.forward", "train.step"]
+        got[steps.index(int(r.ids[up[2]]))] += 1
+    assert got == builds
+
+
 def test_timers_share_the_spans_clock_reads(hub):
     cfg, vmm, eng, params = _engine("qwen1.5-0.5b", 0, hub)
     try:
