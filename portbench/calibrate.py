@@ -50,14 +50,15 @@ def serve_readings(ctx, control, look=False):
     sample = rec.counts["sample"]
     torch.cuda.empty_cache()
     out = {"program": judged({"served_logit_gap": serve._widest_gap(
-        ctx.conf, ctx.seed, ctx.device, sample)}, ctx.limits),
+        ctx.arch, ctx.conf, ctx.seed, ctx.device, sample)}, ctx.limits),
         "served_requests": len(sample),
         "served_tokens": sum(len(t) for _, t in sample)}
     if control:
-        top = serve.reference_top(ctx.conf, ctx.seed, ctx.device)
+        top = serve.reference_top(ctx.arch, ctx.conf, ctx.seed, ctx.device)
         gaps = ref.served_gaps(
-            ctx.conf, lambda i: weights.make_layer(ctx.conf, ctx.seed, i,
-                                                   ctx.device, "serve"),
+            ctx.arch, ctx.conf,
+            lambda i: weights.make_layer(ctx.arch, ctx.conf, ctx.seed, i,
+                                         ctx.device, "serve"),
             top, sample, precision="fp8", own_argmax=True)
         out["control_fp8"] = judged(
             {"served_logit_gap": float(max(g.max() for g in gaps))},
@@ -89,14 +90,14 @@ def train_readings(ctx, control, look=False):
         runs.append(("reference_bf16", {"precision": "bf16"}))
     got = {"program": rec.counts["program"]}
     for name, kw in runs:
-        got[name] = ref_train.follow(ctx.conf, ctx.mix, ctx.seed, ctx.device,
-                                     train.CHECKED_STEPS, **kw)
+        got[name] = ref_train.follow(ctx.arch, ctx.conf, ctx.mix, ctx.seed,
+                                     ctx.device, train.CHECKED_STEPS, **kw)
         out[name] = judged(train.compare(got[name]["losses"],
                                          got[name]["grad1"],
                                          got[name]["change"], want),
                            ctx.limits)
     if look:
-        paths = weights.leaf_paths(ctx.conf)
+        paths = weights.leaf_paths(ctx.arch, ctx.conf)
         out["worst_grad_leaves"] = {
             name: worst_leaves(g["grad1"], want["grad1"], paths)
             for name, g in got.items() if name != "fault_half_batch"}

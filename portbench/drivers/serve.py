@@ -36,27 +36,30 @@ class Calls:
     the program inside it, and, in a traced run, the time of the call
     between two synchronisations."""
 
-    def __init__(self, conf, spans, sync):
-        self.conf = conf
+    def __init__(self, arch, conf, spans, sync):
+        self.arch, self.conf = arch, conf
         self.spans = spans
         self.sync = sync
         self.on = False
         self.flops = 0
         self.rows = []          # (kind, tokens, tenant s, program s, t0, t1)
         self.engine = None
+        self._decode = {}       # position → a decode token's FLOPs there
 
     def _work(self, kind, a):
+        arch, conf = self.arch, self.conf
         if kind == "prefill":
             n = int(a[1]["tokens"].shape[1])
-            return n, model_counts.forward_flops(self.conf, n, 0)
+            return n, model_counts.forward_flops(arch, conf, n, 0)
         if kind == "prefill_chunk_paged":
             n = int(a[2].shape[1])
-            return n, model_counts.forward_flops(self.conf, n, int(a[5]))
+            return n, model_counts.forward_flops(arch, conf, n, int(a[5]))
         pos = self.engine.positions
-        live = pos[pos >= 0].astype(np.int64)
-        f0 = model_counts.forward_flops(self.conf, 1, 0)
-        f1 = model_counts.forward_flops(self.conf, 1, 1) - f0
-        return len(live), len(live) * f0 + f1 * int(live.sum())
+        live = pos[pos >= 0].tolist()
+        for p in live:
+            if p not in self._decode:
+                self._decode[p] = model_counts.forward_flops(arch, conf, 1, p)
+        return len(live), sum(self._decode[p] for p in live)
 
     def wrap(self, mediate):
         """``mediate`` (a ``virtualized_engine_kw`` wrap) with the
@@ -124,11 +127,11 @@ def run(ctx, check=True):
     rec = harness.Record()
     rec.ctx = ctx
     spans = rec.spans = Spans(ctx.trace)
-    calls = Calls(conf, spans, ctx.trace and on_card)
+    calls = Calls(ctx.arch, conf, spans, ctx.trace and on_card)
     rec.counts["calls"] = calls
 
     model = Model(cfg, device=dev)
-    params = weights.make_tree(conf, ctx.seed, dev, "serve")
+    params = weights.make_tree(ctx.arch, conf, ctx.seed, dev, "serve")
     vmm, tenant = virtual_server(dev, "hybrid")
     kw = virtualized_engine_kw(tenant)
     kw["prefill_wrap"] = calls.wrap(kw["prefill_wrap"])
@@ -275,8 +278,8 @@ def run(ctx, check=True):
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    readings = {"served_logit_gap": _widest_gap(conf, ctx.seed, dev,
-                                                sample)}
+    readings = {"served_logit_gap": _widest_gap(ctx.arch, conf, ctx.seed,
+                                                dev, sample)}
     rec.correct, rec.checks = harness.judge(readings, ctx.limits)
     rec.correct = rec.correct and bool(sample)
     return rec
@@ -296,20 +299,21 @@ def _sample(done, seed, k, info):
             for r in [longest] + pick]
 
 
-def reference_top(conf, seed, device):
+def reference_top(arch, conf, seed, device):
     top = {}
-    for name in ("tok_embed", "final_norm", "lm_head"):
-        top.update(weights.make_top(conf, seed, name, device, "serve"))
+    for name in arch.top_groups(conf):
+        top.update(weights.make_top(arch, conf, seed, name, device, "serve"))
     return top
 
 
-def _widest_gap(conf, seed, device, sample):
+def _widest_gap(arch, conf, seed, device, sample):
     """The widest gap, over every served token of the sample, between
     the reference's best logit and its logit of the served token."""
     if not sample:
         return None
-    top = reference_top(conf, seed, device)
+    top = reference_top(arch, conf, seed, device)
     gaps = ref.served_gaps(
-        conf, lambda i: weights.make_layer(conf, seed, i, device, "serve"),
+        arch, conf,
+        lambda i: weights.make_layer(arch, conf, seed, i, device, "serve"),
         top, sample)
     return float(max(g.max() for g in gaps))

@@ -46,16 +46,16 @@ def leaf_norms(tree, paths):
     return [float(x) for x in torch.stack(norms).cpu()]
 
 
-def change_norms(conf, seed, params, paths, device):
+def change_norms(arch, conf, seed, params, paths, device):
     """Each leaf's ‖p − p₀‖, p₀ made again from the seed a group at a
     time."""
     out = {}
-    for name in weights.top_groups(conf):
-        for p, t0 in weights.make_top(conf, seed, name, device,
+    for name in arch.top_groups(conf):
+        for p, t0 in weights.make_top(arch, conf, seed, name, device,
                                       "train").items():
             out[p] = float((weights.get(params, p) - t0).norm())
     for i in range(conf["n_layers"]):
-        for p, t0 in weights.make_layer(conf, seed, i, device,
+        for p, t0 in weights.make_layer(arch, conf, seed, i, device,
                                         "train").items():
             out[("layers", i) + p] = float(
                 (weights.get(params, ("layers", i) + p) - t0).norm())
@@ -75,6 +75,7 @@ def run(ctx, fault=None):
     from repro_torch.parallel import build_step_for_cell
 
     cfg, conf, mix, dev = ctx.cfg, ctx.conf, ctx.mix, ctx.device
+    arch = ctx.arch
     on_card = dev.type == "cuda"
     rec = harness.Record()
     rec.ctx = ctx
@@ -116,8 +117,8 @@ def run(ctx, fault=None):
         rec.counts.setdefault("tax", []).append(t1 - t0 - inner[-1])
         return out
 
-    paths = weights.leaf_paths(conf)
-    params = weights.make_tree(conf, ctx.seed, dev, "train")
+    paths = weights.leaf_paths(arch, conf)
+    params = weights.make_tree(arch, conf, ctx.seed, dev, "train")
     state = opt_init(opt, params)
     losses = []
     for i in range(CHECKED_STEPS):
@@ -127,7 +128,7 @@ def run(ctx, fault=None):
         if i == 0:
             grad1 = [x / (1.0 - opt.beta1)
                      for x in leaf_norms(state["m"], paths)]
-    change = change_norms(conf, ctx.seed, params, paths, dev)
+    change = change_norms(arch, conf, ctx.seed, params, paths, dev)
     dtrace = DeviceTrace(dev, cpu=True) if ctx.trace and on_card else None
     if dtrace is not None:
         dtrace.open()
@@ -167,7 +168,7 @@ def run(ctx, fault=None):
     rec.e2e["train_tok_s"] = tokens / (done[-1] - t_start) if done else 0.0
     rec.e2e["train_peak_gib"] = window_peak / 2 ** 30
     rec.counts.update(window=(t_start, end), steps=len(done),
-                      flops=B * model_counts.train_flops(conf, S)
+                      flops=B * model_counts.train_flops(arch, conf, S)
                       * len(done), step_ends=[t for t, _ in ends])
     rec.trace = dtrace.read(spans) if traced else None
     if traced:
@@ -182,7 +183,7 @@ def run(ctx, fault=None):
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    want = ref_train.follow(conf, mix, ctx.seed, dev, CHECKED_STEPS)
+    want = ref_train.follow(arch, conf, mix, ctx.seed, dev, CHECKED_STEPS)
     readings = compare(losses, grad1, change, want)
     rec.counts["readings"] = readings
     rec.counts["reference"] = want

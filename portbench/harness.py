@@ -6,8 +6,17 @@ mix. Their files are ``configs[...]["file"]`` and
 ``portbench/traffic/<traffic>.json``; the limits of its correctness
 check are ``portbench/limits/<cell>.json``; the traffic file's
 ``driver`` names ``portbench/drivers/<driver>.py``; each per-layer
-metric is ``portbench/metrics/<name>.py``. Adding a cell or a metric
-adds files and entries and edits none.
+metric is ``portbench/metrics/<name>.py``; the configuration file's
+``family`` names ``portbench/archs/<family>.py``, which holds all that
+the benchmark knows of an architecture: its weights' layout by layer
+index (``layer_spec``, ``top_groups``, ``FP32_LEAVES``), its plain
+reference (``embed``, ``layer``, ``head``), its FLOPs by layer
+(``layer_matmul_weights``, ``layer_context_flops``,
+``top_matmul_weights``), the widths checked against the port
+(``check_port``), its mixer's autograd node (``MIXER_NODE``) and the
+sizes of its CPU tests (``TINY``). Adding a cell or a metric adds files
+and entries and edits none; so does adding an architecture: one
+``archs/`` file, one configuration file, their entries.
 """
 from __future__ import annotations
 
@@ -23,9 +32,6 @@ ROOT = Path(__file__).resolve().parents[1]
 BENCH = ROOT / "portbench"
 #: top-level modules that may not be loaded in a run's process
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-#: the widths a configuration file states, checked against the port's
-WIDTHS = ("d_model", "n_heads", "n_kv_heads", "d_head", "d_ff", "vocab",
-          "rwkv_head_dim", "rope_theta", "norm_eps", "qkv_bias", "use_rope")
 
 
 class RunError(Exception):
@@ -53,25 +59,39 @@ def cell_files(name, root=ROOT):
     return bench, cell, conf, mix, limits
 
 
-def port_config(conf):
+def load_arch(family, root=ROOT):
+    """The architecture family's module, ``portbench/archs/<family>.py``
+    under ``root``."""
+    path = root / "portbench" / "archs" / f"{family}.py"
+    if not path.is_file():
+        raise RunError(f"no architecture family file {path}")
+    spec = importlib.util.spec_from_file_location(
+        f"portbench.archs.a_{family.replace('.', '_').replace('-', '_')}",
+        path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def port_config(arch, conf):
     """The port's ``ModelConfig`` of a configuration file: its arch
     (``reduced`` picks the port's CPU-sized variant, for the tests) with
-    ``n_layers`` as the file states; every width the file states (the
-    RWKV-6 LoRA ranks among them, which the port fixes) must equal the
-    port's."""
+    ``n_layers`` as the file states; the family checks that every width
+    the file states equals the port's (``arch.check_port``)."""
     from repro_torch.configs import get_config
     cfg = get_config(conf["arch"], reduced=bool(conf.get("port_reduced")))
     cfg = dataclasses.replace(cfg, n_layers=conf["n_layers"])
-    port = {k: getattr(cfg, k) for k in WIDTHS}
-    if conf.get("mixer") == "rwkv":
-        from repro_torch.models import recurrent
-        port.update(lora_mix_rank=recurrent.LORA_MIX,
-                    lora_decay_rank=recurrent.LORA_DECAY)
+    arch.check_port(conf, cfg)
+    return cfg
+
+
+def check_widths(conf, port):
+    """Each width of ``port`` (the port's value by the file's key) that
+    the file states must equal the file's."""
     for key, value in port.items():
         if key in conf and conf[key] != value:
             raise RunError(f"{conf['name']}: {key} is {conf[key]!r} in the "
                            f"file, {value!r} in the port")
-    return cfg
 
 
 def quantile(values, q):
@@ -114,11 +134,12 @@ def cell_metrics(bench, cell, kind):
 
 
 class Context:
-    """What a driver gets: the cell's files, the run's arguments, the
-    device, and the process's start on the monotonic clock."""
+    """What a driver gets: the cell's files, its architecture family's
+    module, the run's arguments, the device, and the process's start on
+    the monotonic clock."""
 
     def __init__(self, bench, cell, conf, mix, limits, args, device,
-                 t_process):
+                 t_process, root=ROOT):
         self.bench, self.cell, self.conf = bench, cell, conf
         self.mix, self.limits = mix, limits
         self.seed = int(args.seed)
@@ -126,7 +147,10 @@ class Context:
         self.trace = bool(args.trace)
         self.device = device
         self.t_process = t_process
-        self.cfg = port_config(conf)
+        if "family" not in conf:
+            raise RunError(f"{conf['name']}: the file names no family")
+        self.arch = load_arch(conf["family"], root)
+        self.cfg = port_config(self.arch, conf)
 
 
 def run(args, t_process, device=None, root=ROOT):
@@ -144,7 +168,8 @@ def run(args, t_process, device=None, root=ROOT):
         torch.cuda.set_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ctx = Context(bench, cell, conf, mix, limits, args, device, t_process)
+    ctx = Context(bench, cell, conf, mix, limits, args, device, t_process,
+                  root)
     driver = importlib.import_module(f"portbench.drivers.{mix['driver']}")
     rec = driver.run(ctx)
     kind = "per_layer" if ctx.trace else "end_to_end"

@@ -9,9 +9,6 @@ import statistics
 
 from portbench.counts import peaks
 
-#: the autograd node whose backward ``mixer_bwd_share`` reads, by mixer
-MIXER_NODE = {"attn": "_Flash", "rwkv": "_Wkv"}
-
 
 def _calls(rec, kind=None):
     calls = rec.counts.get("calls")
@@ -63,11 +60,11 @@ def call_ms(rec, kind):
 
 def mixer_bwd_share(rec):
     """Share of the traced device time spent under the backward of the
-    configuration's mixer node (``_Flash`` or ``_Wkv``), %."""
+    family's mixer node (its ``MIXER_NODE``: ``_Flash``, ``_Wkv``), %."""
     tr = rec.trace
     if tr is None or not tr.busy_s:
         return None
-    s = tr.autograd_device_s(MIXER_NODE[rec.ctx.conf["mixer"]])
+    s = tr.autograd_device_s(rec.ctx.arch.MIXER_NODE)
     return 100.0 * s / tr.busy_s if s else None
 
 

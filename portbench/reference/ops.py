@@ -80,6 +80,18 @@ def linear(x, w, precision):
     raise ValueError(precision)
 
 
+def f32(p, *path):
+    """The leaf at ``path`` of a group's ``{path: tensor}``, in fp32."""
+    return p[path].float()
+
+
+def layer_norm_head(top, x, eps, precision):
+    """The final LayerNorm and the untied head: logits (T, V)."""
+    h = rnd(layer_norm(x, f32(top, "final_norm", "scale"),
+                       f32(top, "final_norm", "bias"), eps), precision)
+    return rnd(linear(h, f32(top, "lm_head"), precision), precision)
+
+
 def layer_norm(x, scale, bias, eps):
     mu = x.mean(-1, keepdim=True)
     var = ((x - mu) ** 2).mean(-1, keepdim=True)

@@ -27,19 +27,20 @@ def lr_at(opt, step):
         1.0 + math.cos(math.pi * prog))
 
 
-def initial(conf, seed, device):
+def initial(arch, conf, seed, device):
     """{path from the root: fp32 tensor} of the weights at step 0."""
     out = {}
-    for name in weights.top_groups(conf):
-        out.update(weights.make_top(conf, seed, name, device, "train"))
+    for name in arch.top_groups(conf):
+        out.update(weights.make_top(arch, conf, seed, name, device, "train"))
     for i in range(conf["n_layers"]):
         out.update({("layers", i) + p: t for p, t in
-                    weights.make_layer(conf, seed, i, device,
+                    weights.make_layer(arch, conf, seed, i, device,
                                        "train").items()})
     return out
 
 
-def follow(conf, mix, seed, device, steps, precision="fp32", fault=None):
+def follow(arch, conf, mix, seed, device, steps, precision="fp32",
+           fault=None):
     """→ {"losses", "grad1", "change"}: the loss of each of ``steps``
     steps, each leaf's norm of the first gradient after clipping (what
     AdamW's first moment holds over 1 - beta1), and each leaf's
@@ -49,8 +50,8 @@ def follow(conf, mix, seed, device, steps, precision="fp32", fault=None):
     ops.no_tf32()
     opt = mix["optimizer"]
     b1, b2 = opt["beta1"], opt["beta2"]
-    paths = weights.leaf_paths(conf)
-    params = initial(conf, seed, device)
+    paths = weights.leaf_paths(arch, conf)
+    params = initial(arch, conf, seed, device)
     m = {p: torch.zeros_like(t) for p, t in params.items()}
     v = {p: torch.zeros_like(t) for p, t in params.items()}
     losses, grad1 = [], None
@@ -61,7 +62,7 @@ def follow(conf, mix, seed, device, steps, precision="fp32", fault=None):
             b["mask"][:, : b["mask"].shape[1] // 2] = 0
         live = {p: t.detach().requires_grad_() for p, t in params.items()}
         with torch.enable_grad():
-            loss = model.loss(conf, live, b, precision)
+            loss = model.loss(arch, conf, live, b, precision)
             grads = torch.autograd.grad(loss, [live[p] for p in paths])
         losses.append(float(loss.detach()))
         with torch.no_grad():
@@ -84,6 +85,6 @@ def follow(conf, mix, seed, device, steps, precision="fp32", fault=None):
                 params[p] = (w - lr * upd)
         del grads, live, loss
     del m, v
-    start = initial(conf, seed, device)
+    start = initial(arch, conf, seed, device)
     change = [float((params[p] - start[p]).norm()) for p in paths]
     return {"losses": losses, "grad1": grad1, "change": change}

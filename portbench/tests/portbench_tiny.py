@@ -1,8 +1,9 @@
 """A copy of the benchmark's cells at the port's CPU sizes, for the tests:
-the same BENCHMARK.json, traffic kinds and limits, each configuration
-cut to the port's reduced widths and each mix to a few requests or
-short rows. ``run_cell`` drives a whole run on the CPU, the look for a
-card skipped."""
+the same BENCHMARK.json, traffic kinds, limits and architecture
+families, each configuration cut to its family's ``TINY`` widths (the
+port's reduced ones) and each mix to a few requests or short rows.
+``run_cell`` drives a whole run on the CPU, the look for a card
+skipped."""
 import argparse
 import json
 import shutil
@@ -15,10 +16,8 @@ for p in (str(ROOT / "src"), str(ROOT)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-DENSE = dict(n_layers=2, d_model=64, n_heads=8, n_kv_heads=2, d_head=8,
-             d_ff=256, vocab=512, rope_theta=10000.0)
-RWKV = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2, d_head=32,
-            rwkv_head_dim=32, d_ff=128, vocab=512)
+#: the CPU cut of each traffic mix; a mix not named here carries its own
+#: under the key ``tiny`` in its file
 MIXES = {
     "code_completion": dict(clients=4, pool=512, pool_block=4,
                             prompt_tokens=[8, 120], output_tokens=[2, 6],
@@ -33,21 +32,37 @@ MIXES = {
 }
 
 
+def tiny_conf(entry):
+    """The configuration file of a ``BENCHMARK.json`` entry, cut to its
+    family's ``TINY`` widths → (its family's module, the configuration)."""
+    from portbench import harness
+    conf = json.loads((ROOT / entry["file"]).read_text())
+    arch = harness.load_arch(conf["family"])
+    conf.update(arch.TINY, port_reduced=True)
+    return arch, conf
+
+
+def config_entries():
+    """Every configuration entry of ``BENCHMARK.json``."""
+    return json.loads((ROOT / "BENCHMARK.json").read_text())["configs"]
+
+
 def make_root(tmp):
     """The tiny copy under ``tmp`` → its root."""
     tmp = Path(tmp)
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     for sub in ("configs", "traffic", "limits"):
         (tmp / "portbench" / sub).mkdir(parents=True, exist_ok=True)
+    shutil.copytree(ROOT / "portbench" / "archs", tmp / "portbench" / "archs",
+                    ignore=shutil.ignore_patterns("__pycache__"),
+                    dirs_exist_ok=True)
     for c in bench["configs"]:
-        conf = json.loads((ROOT / c["file"]).read_text())
-        conf.update(DENSE if conf["mixer"] == "attn" else RWKV)
-        conf["port_reduced"] = True
+        _, conf = tiny_conf(c)
         (tmp / c["file"]).write_text(json.dumps(conf))
     for w in bench["workloads"]:
         src = ROOT / "portbench" / "traffic" / f"{w['traffic']}.json"
         mix = json.loads(src.read_text())
-        mix.update(MIXES[w["traffic"]])
+        mix.update(MIXES.get(w["traffic"]) or mix["tiny"])
         (tmp / "portbench" / "traffic" / src.name).write_text(
             json.dumps(mix))
         shutil.copy(ROOT / "portbench" / "limits" / f"{w['name']}.json",
@@ -63,7 +78,7 @@ def cell_context(root, cell, seed=2 ** 31 + 11, seconds=1.0, trace=0):
     args = argparse.Namespace(workload=cell, seed=seed, seconds=seconds,
                               trace=trace)
     return harness.Context(bench, c, conf, mix, limits, args,
-                           torch.device("cpu"), time.monotonic())
+                           torch.device("cpu"), time.monotonic(), Path(root))
 
 
 def run_cell(root, cell, seed=2 ** 31 + 11, seconds=1.0, trace=0):

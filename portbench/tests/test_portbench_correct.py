@@ -5,6 +5,9 @@ is produced; a step that returns its state unchanged; half of the batch
 left out). And the control — the plain reference in float8 in the
 program's place — reads well above the program, and in training fails
 the cell's limits."""
+import math
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -40,7 +43,7 @@ def _alter_tokens(monkeypatch, vocab):
 @pytest.mark.parametrize("cell", ["sc2-serve-code", "rwkv6-serve-chat"])
 def test_a_served_token_altered_is_not_correct(root, cell, monkeypatch):
     sound = tiny.run_cell(root, cell, seconds=2.0)
-    _alter_tokens(monkeypatch, tiny.DENSE["vocab"])
+    _alter_tokens(monkeypatch, harness.cell_files(cell, root)[2]["vocab"])
     broken = tiny.run_cell(root, cell, seconds=2.0)
     gap = "served_logit_gap"
     assert sound["checks"][gap]["value"] is not None, "nothing finished"
@@ -66,7 +69,7 @@ def test_the_fp8_control_reads_above_the_program_in_training(root, cell):
     ctx = tiny.cell_context(root, cell, seconds=0.5)
     rec = train.run(ctx)
     want = rec.counts["reference"]
-    got = ref_train.follow(ctx.conf, ctx.mix, ctx.seed, ctx.device,
+    got = ref_train.follow(ctx.arch, ctx.conf, ctx.mix, ctx.seed, ctx.device,
                            train.CHECKED_STEPS, precision="fp8")
     control = train.compare(got["losses"], got["grad1"], got["change"], want)
     program = rec.counts["readings"]
@@ -76,20 +79,50 @@ def test_the_fp8_control_reads_above_the_program_in_training(root, cell):
     assert not harness.judge(control, ctx.limits)[0], (control, ctx.limits)
 
 
+class _ClockUntil:
+    """``serve.py``'s clock in a run that ends once ``n`` requests have
+    finished (the cell's warm-up among them), whatever the host's pace: it
+    stands still until then, and then reads past any close. The engine
+    counts the requests it finishes in through ``finished``."""
+
+    sleep = staticmethod(time.sleep)
+
+    def __init__(self, n):
+        self.n, self.finished = n, 0
+
+    def monotonic(self):
+        return 0.0 if self.finished < self.n else math.inf
+
+
 @pytest.mark.parametrize("cell", ["sc2-serve-code", "rwkv6-serve-chat"])
-def test_the_fp8_control_reads_above_the_program_in_serving(root, cell):
+def test_the_fp8_control_reads_above_the_program_in_serving(root, cell,
+                                                             monkeypatch):
+    """On a fixed sample: the requests a window serves until its 32nd
+    finishes, the same on a host under load as on an idle one."""
     from portbench import weights
     from portbench.reference import model as ref
+    from repro_torch.serving.engine import ServeEngine
+    clock, step = _ClockUntil(32), ServeEngine.step
+
+    def counted(self, params):
+        done = step(self, params)
+        clock.finished += len(done)
+        return done
+    monkeypatch.setattr(serve, "time", clock)
+    monkeypatch.setattr(ServeEngine, "step", counted)
     ctx = tiny.cell_context(root, cell, seconds=2.0)
     rec = serve.run(ctx, check=False)
     sample = rec.counts["sample"]
-    assert sample, "nothing finished"
-    program = serve._widest_gap(ctx.conf, ctx.seed, ctx.device, sample)
+    assert clock.finished >= clock.n
+    assert len(sample) == ctx.mix["check"]["requests"], "too few finished"
+    program = serve._widest_gap(ctx.arch, ctx.conf, ctx.seed, ctx.device,
+                                sample)
     gaps = ref.served_gaps(
-        ctx.conf, lambda i: weights.make_layer(ctx.conf, ctx.seed, i,
-                                               ctx.device, "serve"),
-        serve.reference_top(ctx.conf, ctx.seed, ctx.device), sample,
-        precision="fp8", own_argmax=True)
+        ctx.arch, ctx.conf,
+        lambda i: weights.make_layer(ctx.arch, ctx.conf, ctx.seed, i,
+                                     ctx.device, "serve"),
+        serve.reference_top(ctx.arch, ctx.conf, ctx.seed, ctx.device),
+        sample, precision="fp8", own_argmax=True)
     control = float(max(g.max() for g in gaps))
     # (a 64-wide model's logits spread too little for the cell's limit:
     # calibrate.py judges the control by it at the cell's size)

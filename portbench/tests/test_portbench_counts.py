@@ -1,18 +1,27 @@
 """The work counts behind the rooflines and the model FLOPs, on shapes
-checked by hand, and the arithmetic of the metrics."""
+checked by hand and, for every configuration of BENCHMARK.json, the
+properties any family's counts keep; and the arithmetic of the
+metrics."""
 import math
 import types
 
 import pytest
 
+import portbench_tiny as tiny
 from portbench import harness, readers
 from portbench.counts import attention, model, peaks, wkv
 
-SC2 = dict(mixer="attn", ffn="gelu", n_layers=40, d_model=6144, n_heads=48,
-           n_kv_heads=4, d_head=128, d_ff=24576, vocab=49152)
-RWKV = dict(mixer="rwkv", ffn="channelmix", n_layers=32, d_model=4096,
-            rwkv_head_dim=64, d_ff=14336, vocab=65536, lora_mix_rank=32,
-            lora_decay_rank=64)
+CONFIGS = {c["name"]: c for c in tiny.config_entries()}
+
+
+def full(name):
+    """A configuration file as it runs, with its family's module."""
+    conf = harness.load_json(tiny.ROOT / CONFIGS[name]["file"])
+    return harness.load_arch(conf["family"]), conf
+
+
+SC2_ARCH, SC2 = full("starcoder2-15b")
+RWKV_ARCH, RWKV = full("rwkv6-7b")
 
 
 def test_causal_gqa_by_hand():
@@ -29,25 +38,68 @@ def test_wkv_by_hand():
 
 def test_model_weights_and_flops():
     # StarCoder2-15B's product weights: 15.4 B in the layers, the head
-    w = model.matmul_weights(SC2)
+    a = SC2_ARCH
+    w = model.matmul_weights(a, SC2)
     layer = 2 * 6144 * 6144 + 2 * 6144 * 512 + 2 * 6144 * 24576
     assert w == 40 * layer + 6144 * 49152
-    assert model.forward_flops(SC2, 1, 0) == 2 * w + 4 * 48 * 128 * 40
+    assert model.forward_flops(a, SC2, 1, 0) == 2 * w + 4 * 48 * 128 * 40
     # a prefill of n tokens: Σ (p + 1) keys over p < n
     n = 1000
-    assert model.forward_flops(SC2, n) == 2 * w * n \
+    assert model.forward_flops(a, SC2, n) == 2 * w * n \
         + 4 * 48 * 128 * 40 * n * (n + 1) // 2
     # the decode at position p reads p + 1 keys
-    assert model.forward_flops(SC2, 1, 99) - model.forward_flops(SC2, 1, 0) \
-        == 4 * 48 * 128 * 40 * 99
-    assert model.train_flops(SC2, 10) == 3 * model.forward_flops(SC2, 10)
-    r = model.matmul_weights(RWKV)
+    assert model.forward_flops(a, SC2, 1, 99) \
+        - model.forward_flops(a, SC2, 1, 0) == 4 * 48 * 128 * 40 * 99
+    assert model.train_flops(a, SC2, 10) \
+        == 3 * model.forward_flops(a, SC2, 10)
+    a = RWKV_ARCH
+    r = model.matmul_weights(a, RWKV)
     assert 7.0e9 < r < 7.6e9
     # the LoRA ranks come from the file: the published 7B's 64 and 128
     wide = dict(RWKV, lora_mix_rank=64, lora_decay_rank=128)
-    assert model.matmul_weights(wide) - r == 32 * (10 * 4096 * 32
-                                                   + 2 * 4096 * 64)
-    assert model.forward_flops(RWKV, 2, 5) == model.forward_flops(RWKV, 2)
+    assert model.matmul_weights(a, wide) - r == 32 * (10 * 4096 * 32
+                                                      + 2 * 4096 * 64)
+    assert model.forward_flops(a, RWKV, 2, 5) \
+        == model.forward_flops(a, RWKV, 2)
+
+
+@pytest.mark.parametrize("size", ["tiny", "full"])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_every_family_counts_chunks_as_the_whole(name, size):
+    """A prefill split into chunks counts what it counts whole; a decode
+    token's work never falls with its position; the products are the
+    floor of the forward; training is three forwards."""
+    arch, conf = full(name) if size == "full" else \
+        tiny.tiny_conf(CONFIGS[name])
+
+    def fwd(n, start=0):
+        return model.forward_flops(arch, conf, n, start)
+    assert fwd(4096) == fwd(1000) + fwd(3096, 1000) \
+        == fwd(512) + fwd(512, 512) + fwd(3072, 1024)
+    assert fwd(1, 0) <= fwd(1, 1) <= fwd(1, 4095)
+    assert fwd(7) >= 2 * model.matmul_weights(arch, conf) * 7
+    assert model.train_flops(arch, conf, 4096) == 3 * fwd(4096)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_a_decode_call_counts_each_live_slot_at_its_position(name):
+    """The serving driver's count of a decode call: every live slot's
+    token at its own position, empty slots left out; for these families
+    the same integer as the first token's count plus a per-position step
+    times the positions' sum."""
+    import numpy as np
+    from portbench.drivers import serve
+    arch, conf = full(name)
+    calls = serve.Calls(arch, conf, None, False)
+    live = [0, 4095, 17, 17]
+    calls.engine = types.SimpleNamespace(
+        positions=np.array([-1] + live[:2] + [-1] + live[2:]))
+    n, flops = calls._work("decode_paged_fused", ())
+    f0 = model.forward_flops(arch, conf, 1, 0)
+    f1 = model.forward_flops(arch, conf, 1, 1) - f0
+    assert n == 4
+    assert flops == sum(model.forward_flops(arch, conf, 1, p) for p in live) \
+        == 4 * f0 + f1 * sum(live)
 
 
 def test_bound_picks_the_longer_of_the_two():

@@ -1,5 +1,7 @@
 """Nothing the benchmark runs imports JAX or the JAX package, and the
-plain reference imports nothing of the program."""
+plain reference imports nothing of the program: neither ``reference/``
+nor the reference layers of the architecture families, whose only look
+at the program is the widths check (``check_port``)."""
 import ast
 from pathlib import Path
 
@@ -39,3 +41,21 @@ def test_harness_reads_nothing_of_the_jax_benchmarks():
     for p in sources():
         assert "benchmarks/" not in p.read_text().replace(
             "portbench/", ""), p
+
+
+def test_families_look_at_the_program_only_to_check_widths():
+    archs = [p for p in sources() if "archs" in p.parts]
+    assert archs
+    for p in archs:
+        tree = ast.parse(p.read_text())
+        allowed = {id(n) for f in ast.walk(tree)
+                   if isinstance(f, ast.FunctionDef) and f.name == "check_port"
+                   for n in ast.walk(f)}
+        bad = [(p.name, node.lineno) for node in ast.walk(tree)
+               if isinstance(node, (ast.Import, ast.ImportFrom))
+               and id(node) not in allowed
+               and any(m.split(".")[0] == "repro_torch"
+                       for m in ([a.name for a in node.names]
+                                 if isinstance(node, ast.Import)
+                                 else [node.module or ""]))]
+        assert not bad, bad

@@ -2,20 +2,21 @@
 layout, for the program and for the plain reference alike.
 
 The layout is the one ``repro_torch.models.Model`` reads (``tok_embed``,
-``layers``: one dict per layer, ``final_norm``, ``lm_head``; the leaf
-names and shapes of ``models/attention.py``, ``models/recurrent.py`` and
-``models/layers.py``). It is written out here, leaf by leaf, so that the
-benchmark never calls the program to make its inputs.
+``layers``: one dict per layer, ``final_norm``, ``lm_head``). Each
+architecture family writes out its leaves' names, shapes and draws in
+``portbench/archs/<family>.py`` (``layer_spec(conf, i)``,
+``top_groups(conf)``), so that the benchmark never calls the program to
+make its inputs; this module draws them.
 
-Every group of leaves (the embedding, the head, the final norm, each
-layer) is drawn in one ``torch.randn`` call on the device from a
-generator seeded by ``(seed, group)``, so any one layer can be made again
-alone: the reference makes each layer as it needs it, after the
-program's state is freed. Two modes:
+Every group of leaves (each group of ``top_groups``, each layer) is drawn
+in one ``torch.randn`` call a dtype on the device from a generator seeded
+by ``(seed, group)``, so any one layer can be made again alone: the
+reference makes each layer as it needs it, after the program's state is
+freed. Two modes:
 
 * ``serve``: the dtypes ``Model.compute_params`` gives a served model —
-  product weights in the compute dtype (bf16), norm scales and biases and
-  the recurrent fp32 leaves (``decay_base``, ``bonus_u``) in fp32;
+  product weights in the compute dtype (bf16), the family's
+  ``FP32_LEAVES`` (norm scales and biases, recurrent leaves) in fp32;
 * ``train``: every leaf in the parameter dtype (fp32), as
   ``Model.init`` gives a model to train.
 """
@@ -25,88 +26,34 @@ import math
 
 import torch
 
-#: leaf names that a served model keeps in fp32 (``Model.compute_params``
-#: keeps the norm dicts' ``scale``/``bias`` and these recurrent leaves)
-FP32_LEAVES = ("scale", "bias", "decay_base", "bonus_u")
 
-
-def _normal(std):
+def normal(std):
+    """A leaf drawn from N(0, std²)."""
     return ("affine", 0.0, std)
 
 
-def _affine(mean, std):
+def affine(mean, std):
+    """A leaf drawn from N(mean, std²)."""
     return ("affine", mean, std)
 
 
-def _norm(d):
-    return [("scale", (d,), _affine(1.0, 0.1)),
-            ("bias", (d,), _affine(0.0, 0.1))]
+def layer_norm(name, d):
+    """A LayerNorm's leaves under ``name``: its scale and bias."""
+    return [((name, "scale"), (d,), affine(1.0, 0.1)),
+            ((name, "bias"), (d,), affine(0.0, 0.1))]
 
 
-def layer_spec(conf):
-    """→ [(path, shape, init)] of one layer, ``path`` a tuple of keys
-    inside the layer's dict."""
-    d = conf["d_model"]
-    out = [(("norm1",) + p[:1], p[1], p[2]) for p in _norm(d)]
-    out += [(("norm2",) + p[:1], p[1], p[2]) for p in _norm(d)]
-    if conf["mixer"] == "attn":
-        H, Hkv, hd = conf["n_heads"], conf["n_kv_heads"], conf["d_head"]
-        out += [(("mixer", "wq"), (d, H, hd), _normal(d ** -0.5)),
-                (("mixer", "wk"), (d, Hkv, hd), _normal(d ** -0.5)),
-                (("mixer", "wv"), (d, Hkv, hd), _normal(d ** -0.5)),
-                (("mixer", "wo"), (H, hd, d), _normal((H * hd) ** -0.5))]
-        if conf["qkv_bias"]:
-            out += [(("mixer", "bq"), (H, hd), _affine(0.0, 0.1)),
-                    (("mixer", "bk"), (Hkv, hd), _affine(0.0, 0.1)),
-                    (("mixer", "bv"), (Hkv, hd), _affine(0.0, 0.1))]
-    elif conf["mixer"] == "rwkv":
-        K = conf["rwkv_head_dim"]
-        H = d // K
-        r_mix, r_decay = conf["lora_mix_rank"], conf["lora_decay_rank"]
-        out += [(("mixer", "mu_base"), (d,), _affine(0.5, 0.1)),
-                (("mixer", "mu_rkvwg"), (5, d), _affine(0.5, 0.1)),
-                (("mixer", "mix_A"), (d, 5 * r_mix), _normal(d ** -0.5)),
-                (("mixer", "mix_B"), (5, r_mix, d), _normal(0.05))]
-        out += [(("mixer", w), (d, d), _normal(d ** -0.5))
-                for w in ("w_r", "w_k", "w_v", "w_g", "w_o")]
-        out += [(("mixer", "decay_base"), (d,), _affine(-3.0, 1.0)),
-                (("mixer", "decay_A"), (d, r_decay), _normal(d ** -0.5)),
-                (("mixer", "decay_B"), (r_decay, d),
-                 _normal(r_decay ** -0.5)),
-                (("mixer", "bonus_u"), (H, K), _affine(0.0, 0.1)),
-                (("mixer", "ln_scale"), (d,), _affine(1.0, 0.1)),
-                (("mixer", "ln_bias"), (d,), _affine(0.0, 0.1))]
-    else:
-        raise ValueError(f"mixer {conf['mixer']!r}")
-    ff = conf["d_ff"]
-    if conf["ffn"] == "gelu":
-        out += [(("ffn", "w_up"), (d, ff), _normal(d ** -0.5)),
-                (("ffn", "b_up"), (ff,), _affine(0.0, 0.1)),
-                (("ffn", "w_down"), (ff, d), _normal(ff ** -0.5)),
-                (("ffn", "b_down"), (d,), _affine(0.0, 0.1))]
-    elif conf["ffn"] == "channelmix":
-        out += [(("ffn", "mu_k"), (d,), _affine(0.5, 0.1)),
-                (("ffn", "mu_r"), (d,), _affine(0.5, 0.1)),
-                (("ffn", "w_k"), (d, ff), _normal(d ** -0.5)),
-                (("ffn", "w_v"), (ff, d), _normal(ff ** -0.5)),
-                (("ffn", "w_r"), (d, d), _normal(d ** -0.5))]
-    else:
-        raise ValueError(f"ffn {conf['ffn']!r}")
-    return out
-
-
-def top_groups(conf):
-    """→ {group: [(path, shape, init)]} of the leaves outside the layers,
-    ``path`` a tuple of keys from the tree's root."""
+def layer_norm_top(conf):
+    """The groups outside the layers of a model with a token embedding,
+    a final LayerNorm and an untied head."""
     d, V = conf["d_model"], conf["vocab"]
-    return {"tok_embed": [(("tok_embed",), (V, d), _normal(1.0))],
-            "final_norm": [(("final_norm",) + p[:1], p[1], p[2])
-                           for p in _norm(d)],
-            "lm_head": [(("lm_head",), (d, V), _normal(d ** -0.5))]}
+    return {"tok_embed": [(("tok_embed",), (V, d), normal(1.0))],
+            "final_norm": layer_norm("final_norm", d),
+            "lm_head": [(("lm_head",), (d, V), normal(d ** -0.5))]}
 
 
-def _dtype(path, mode):
-    if mode == "train" or path[-1] in FP32_LEAVES:
+def _dtype(path, mode, fp32):
+    if mode == "train" or path[-1] in fp32:
         return torch.float32
     return torch.bfloat16
 
@@ -120,14 +67,16 @@ def _group_seed(seed: int, group: str) -> int:
     return h
 
 
-def make_group(spec, seed, group, device, mode):
+def make_group(spec, seed, group, device, mode, fp32):
     """The leaves of one group → {path: tensor}: one ``randn`` call per
-    dtype on the device, each leaf a view of it, scaled in place."""
+    dtype on the device, each leaf a view of it, scaled in place;
+    ``fp32`` names the leaves a served model keeps in fp32."""
     gen = torch.Generator(device=device)
     gen.manual_seed(_group_seed(seed, group))
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        leaves = [s for s in spec if _dtype(s[0], mode) == dtype]
+        leaves = [s for s in spec
+                  if _dtype(s[0], mode, fp32) == dtype]
         if not leaves:
             continue
         n = sum(math.prod(shape) for _, shape, _ in leaves)
@@ -144,13 +93,15 @@ def make_group(spec, seed, group, device, mode):
     return out
 
 
-def make_layer(conf, seed, i, device, mode):
+def make_layer(arch, conf, seed, i, device, mode):
     """Layer ``i``'s leaves → {path inside the layer: tensor}."""
-    return make_group(layer_spec(conf), seed, f"layer{i}", device, mode)
+    return make_group(arch.layer_spec(conf, i), seed, f"layer{i}", device,
+                      mode, arch.FP32_LEAVES)
 
 
-def make_top(conf, seed, name, device, mode):
-    return make_group(top_groups(conf)[name], seed, name, device, mode)
+def make_top(arch, conf, seed, name, device, mode):
+    return make_group(arch.top_groups(conf)[name], seed, name, device, mode,
+                      arch.FP32_LEAVES)
 
 
 def nest(flat):
@@ -164,23 +115,23 @@ def nest(flat):
     return out
 
 
-def make_tree(conf, seed, device, mode):
+def make_tree(arch, conf, seed, device, mode):
     """The whole parameter tree in the port's layout."""
     tree = {}
-    for name in ("tok_embed", "final_norm", "lm_head"):
-        tree.update(nest(make_top(conf, seed, name, device, mode)))
-    tree["layers"] = [nest(make_layer(conf, seed, i, device, mode))
+    for name in arch.top_groups(conf):
+        tree.update(nest(make_top(arch, conf, seed, name, device, mode)))
+    tree["layers"] = [nest(make_layer(arch, conf, seed, i, device, mode))
                       for i in range(conf["n_layers"])]
     return tree
 
 
-def leaf_paths(conf):
+def leaf_paths(arch, conf):
     """Every leaf's path from the tree's root, in a fixed order."""
     paths = []
-    for name, spec in top_groups(conf).items():
+    for spec in arch.top_groups(conf).values():
         paths += [p for p, _, _ in spec]
     for i in range(conf["n_layers"]):
-        paths += [("layers", i) + p for p, _, _ in layer_spec(conf)]
+        paths += [("layers", i) + p for p, _, _ in arch.layer_spec(conf, i)]
     return paths
 
 
